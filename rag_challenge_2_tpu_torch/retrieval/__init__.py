@@ -1,0 +1,2 @@
+from .engine import QueryEngine, Request, SearchConfig, search_device
+from .routing import extract_years_from_question, route_core, route_mask

@@ -1,0 +1,94 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface under the git-ignored
+``build/kernels/`` at the root of the checkout, then loaded with ctypes.
+A plain C interface keeps a build at seconds; a PyTorch extension that
+includes the torch headers takes minutes per build.  Pointers go in as
+``data_ptr()`` and the stream as ``torch.cuda.current_stream().cuda_stream``,
+all typed ``c_void_p`` so ctypes never truncates them to 32 bits.
+
+Nothing here runs at import time: the CPU-only test machines import every
+module and have no ``nvcc``.  A failed build raises — there is no fallback
+to a plain version for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# the ptxas report (registers, shared memory, spills) of each build
+build_logs: Dict[str, str] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _build(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    lib = BUILD_DIR / f"lib{name}.so"
+    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, str(src), "-o", tmp],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}"
+            )
+        build_logs[name] = proc.stderr
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu`` (built on first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_build(name)))
+            lib.rc2_cuda_error_string.restype = ctypes.c_char_p
+            lib.rc2_cuda_error_string.argtypes = [ctypes.c_int]
+            _libs[name] = lib
+        return lib
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    if rc != 0:
+        msg = lib.rc2_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+

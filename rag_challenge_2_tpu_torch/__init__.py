@@ -9,9 +9,11 @@ Layout (bottom-up):
     device.py   device resolution + the f32 precision settings
     utils/      tokenizer, native CSR/tokenizer bridge, kernel builder
     ops/        dense top-k (kernel K1), posting-span gather (kernel K2),
+                IVF probe span scores (kernel K4), k-means, int8 rows,
                 BM25 scoring, hit fusion
-    index/      index dataclasses, host builder, npz persistence
-    retrieval/  routing and the query engine (basic method, hybrid BM25)
+    index/      index dataclasses, host builder, npz persistence, IVF
+    retrieval/  routing and the query engine (basic method, hybrid BM25,
+                IVF probe arm)
     models/     the transformer encoder (inference)
     csrc/       the hand-written CUDA kernels for sm_90a
 """

@@ -6,7 +6,8 @@ index written by either package loads in the other.  A bf16 row store is
 kept on disk as its raw uint16 bits (npz has no bf16) and read back with
 ``torch.from_numpy(u16).view(torch.bfloat16)``, which needs no
 ``ml_dtypes``.  The per-posting ``dl`` and the CSR slack ``dma_pad`` are
-derived at load time, not persisted.  IVF sidecars are not ported yet.
+derived at load time, not persisted.  IVF sidecars (``save_ivf`` /
+``load_ivf``) share the reference's npz layout too.
 """
 
 from __future__ import annotations
@@ -34,17 +35,27 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _store_np(t: torch.Tensor) -> np.ndarray:
+    """A row store as numpy; bf16 as its raw uint16 bits (npz has no bf16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _store_tensor(a: np.ndarray, dtype_name: str, device) -> torch.Tensor:
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def save_index(path: Path, idx: CorpusIndex,
                meta: Optional[CorpusMeta] = None) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    emb = idx.emb.detach().cpu()
-    if emb.dtype == torch.bfloat16:
-        emb_np = emb.view(torch.int16).numpy().view(np.uint16)
-    else:
-        emb_np = emb.numpy()
     arrays = {
-        "emb": emb_np,
+        "emb": _store_np(idx.emb),
         "doc_id": _np(idx.doc_id),
         "page": _np(idx.page),
         "year": _np(idx.year),
@@ -130,15 +141,8 @@ def load_index(
             max_postings=statics["sp_max_postings"],
             dma_pad=int(len(cids) - arrays["sp_indptr"][-1]),
         )
-    emb_np = arrays["emb"]
-    if statics.get("emb_dtype", "") == "bfloat16":
-        emb = torch.from_numpy(
-            np.ascontiguousarray(emb_np).view(np.int16)
-        ).view(torch.bfloat16).to(device)
-    else:
-        emb = t(emb_np)
     idx = CorpusIndex(
-        emb=emb,
+        emb=_store_tensor(arrays["emb"], statics.get("emb_dtype", ""), device),
         doc_id=t(arrays["doc_id"]),
         page=t(arrays["page"]),
         year=t(arrays["year"]),
@@ -168,3 +172,80 @@ def load_index(
             page_seg_info=[tuple(p) for p in side["page_seg_info"]],
         )
     return idx, meta
+
+
+def index_fingerprint(index_path: Path) -> str:
+    """Identity stamp of a saved index artifact (size + mtime).  An IVF
+    sidecar is valid only for the corpus npz it was clustered from."""
+    st = Path(index_path).stat()
+    return f"{st.st_size}:{int(st.st_mtime_ns)}"
+
+
+def save_ivf(path: Path, ivf, fingerprint: Optional[str] = None) -> None:
+    """Persist an ``IVFIndex`` (index/ivf.py) as one npz sidecar."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays = {
+        "centroids": _np(ivf.centroids),
+        "emb_perm": _store_np(ivf.emb_perm),
+        "row_ids": _np(ivf.row_ids),
+        "pos_cluster": _np(ivf.pos_cluster),
+        "list_offsets": _np(ivf.list_offsets),
+    }
+    for opt in ("row_scale", "list_row_min", "list_row_max", "cluster_doc"):
+        if getattr(ivf, opt) is not None:
+            arrays[opt] = _np(getattr(ivf, opt))
+    statics = {
+        "version": _FORMAT_VERSION,
+        "k_clusters": ivf.k_clusters,
+        "max_list": ivf.max_list,
+        "dim": ivf.dim,
+        "emb_dtype": _DTYPE_NAMES[ivf.emb_perm.dtype],
+        "fingerprint": fingerprint,
+        "list_align": ivf.list_align,
+        "dma_pad_rows": ivf.dma_pad_rows,
+    }
+    np.savez_compressed(path, __statics__=json.dumps(statics), **arrays)
+
+
+def load_ivf(path: Path, expect_fingerprint: Optional[str] = None,
+             device: DeviceLike = None):
+    """Load an IVF sidecar saved by either package onto ``device``; None
+    when the file is missing or was built from another corpus artifact
+    (fingerprint mismatch).  A sidecar from before the layout contract
+    loads with ``list_align = dma_pad_rows = 0``."""
+    from .ivf import IVFIndex
+
+    path = Path(path)
+    if not path.exists():
+        return None
+    device = resolve_device(device)
+    with np.load(path, allow_pickle=False) as z:
+        statics = json.loads(str(z["__statics__"]))
+        if (expect_fingerprint is not None
+                and statics.get("fingerprint") != expect_fingerprint):
+            return None
+        arrays = {name: z[name] for name in z.files if name != "__statics__"}
+
+    def t(name):
+        if name not in arrays:
+            return None
+        return torch.from_numpy(np.ascontiguousarray(arrays[name])).to(device)
+
+    return IVFIndex(
+        centroids=t("centroids"),
+        emb_perm=_store_tensor(arrays["emb_perm"], statics.get("emb_dtype", ""),
+                               device),
+        row_ids=t("row_ids"),
+        pos_cluster=t("pos_cluster"),
+        list_offsets=t("list_offsets"),
+        row_scale=t("row_scale"),
+        list_row_min=t("list_row_min"),
+        list_row_max=t("list_row_max"),
+        cluster_doc=t("cluster_doc"),
+        k_clusters=statics["k_clusters"],
+        max_list=statics["max_list"],
+        dim=statics["dim"],
+        list_align=statics.get("list_align", 0),
+        dma_pad_rows=statics.get("dma_pad_rows", 0),
+    )

@@ -3,8 +3,10 @@
 Port of ``rag_challenge_2_tpu/retrieval/engine.py`` for ``method="basic"``
 with or without BM25 fusion.  One request fans out over (query, routed
 document) pairs; dense candidates come from kernel K1 per routed document
-slot, BM25 candidates from ``ops.bm25.bm25_topk`` (kernel K2 in front),
-and ``ops.aggregate.fuse_hits`` applies the reference's bonuses.
+slot, or with ``use_ivf`` from one IVF probe search over all pairs
+(``index.ivf.ivf_search``: kernels K4 and K2), BM25 candidates from
+``ops.bm25.bm25_topk`` (kernel K2 in front), and
+``ops.aggregate.fuse_hits`` applies the reference's bonuses.
 
 Queries are padded to ``max_queries`` and routed documents to
 ``max_docs`` like the reference, so the fused hit lists keep its shapes;
@@ -22,6 +24,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..index.ivf import (IVFIndex, build_ivf, cluster_order_index,
+                         ivf_search, quantize_ivf)
 from ..index.schema import CorpusIndex, CorpusMeta
 from ..ops.aggregate import FusedCandidates, fuse_hits
 from ..ops.topk import NEG_INF, dense_topk
@@ -66,8 +70,6 @@ def _check_supported(cfg: SearchConfig) -> None:
         raise NotImplementedError(f"method={cfg.method!r}: {_NOT_PORTED[cfg.method]}")
     if cfg.method != "basic":
         raise ValueError(f"unknown method {cfg.method!r}")
-    if cfg.use_ivf:
-        raise NotImplementedError("use_ivf: IVF is not ported yet (ROADMAP A.12)")
     if cfg.scan_rt is not None:
         raise NotImplementedError(
             "scan_rt: approximate top-k is not ported yet (ROADMAP A.11)")
@@ -94,6 +96,7 @@ class Request:
     row_slot: torch.Tensor           # [N] i32 doc slot per row (M = unrouted)
     win_start: np.ndarray            # [M] i32 doc row-range starts (host)
     win_len: np.ndarray              # [M] i32 doc row-range lengths (host)
+    slot_doc: Optional[np.ndarray] = None  # [M] i32 routed doc per slot, -1 pad
 
 
 Block = Tuple[torch.Tensor, ...]     # (rows, sims, qids, mids, valid)
@@ -145,6 +148,47 @@ def dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
 
 def _qid_pair(Q: int, M: int, dev) -> torch.Tensor:
     return torch.arange(Q, dtype=torch.int32, device=dev).repeat_interleave(M)
+
+
+@torch.inference_mode()
+def ivf_hits(index: CorpusIndex, ivf: IVFIndex, req: Request,
+             cfg: SearchConfig, window: int = 0) -> Block:
+    """Per-(query, doc) IVF probe top-k over all ``Q*M`` pairs in one
+    :func:`~..index.ivf.ivf_search` (kernels K4 and K2), ``[Q*M, k_eff]``
+    with p = q*M + m and ``k_eff = min(top_k, nprobe * max_list)``.
+
+    The routing mode is the cheapest one the index allows, in the
+    reference's order: doc equality on a cluster-ordered corpus
+    (``slot_doc`` and ``ivf.cluster_doc``), row ranges on a windowed
+    corpus whose IVF has list bounds, else the ``[Q*M, N]`` pair mask."""
+    q = req.q
+    Q = q.shape[0]
+    M = req.doc_masks.shape[0]
+    dev = q.device
+    q_pair = q.repeat_interleave(M, dim=0)
+    qv_rep = req.q_valid.repeat_interleave(M)
+    dv = torch.as_tensor(req.doc_valid, dtype=torch.bool, device=dev)
+    kw = dict(k=cfg.top_k, nprobe=cfg.ivf_nprobe)
+    if req.slot_doc is not None and ivf.cluster_doc is not None:
+        sd = torch.as_tensor(req.slot_doc, dtype=torch.int32, device=dev).repeat(Q)
+        pd = torch.where(qv_rep, sd, torch.full_like(sd, -1))
+        vals, rows = ivf_search(ivf, q_pair, pair_doc=pd, pos_doc=index.doc_id,
+                                **kw)
+    elif window > 0 and ivf.list_row_min is not None:
+        ws = torch.as_tensor(req.win_start, dtype=torch.int32, device=dev).repeat(Q)
+        wl = torch.as_tensor(req.win_len, dtype=torch.int32, device=dev).repeat(Q)
+        wl = torch.where(qv_rep & dv.repeat(Q), wl, torch.zeros_like(wl))
+        vals, rows = ivf_search(ivf, q_pair, win_start=ws, win_len=wl, **kw)
+    else:
+        pair_mask = (req.doc_masks[None, :, :] & req.q_valid[:, None, None]
+                     & dv[None, :, None]).reshape(Q * M, -1)
+        vals, rows = ivf_search(ivf, q_pair, mask=pair_mask, **kw)
+    ok = vals > NEG_INF / 2
+    sims = torch.where(ok, vals, torch.zeros_like(vals))
+    qids = _qid_pair(Q, M, dev)[:, None].expand(rows.shape)
+    mids = torch.full(rows.shape, METHOD_IDS["basic"], dtype=torch.int32,
+                      device=dev)
+    return rows, sims, qids, mids, ok
 
 
 @torch.inference_mode()
@@ -202,13 +246,20 @@ def fuse_blocks(index: CorpusIndex, blocks: Sequence[Block],
 
 def search_device(
     index: CorpusIndex, req: Request, cfg: SearchConfig, window: int = 0,
+    ivf: Optional[IVFIndex] = None,
 ) -> Tuple[FusedCandidates, Dict]:
     """Full fan-out + aggregation for one request on ``index``'s device:
-    dense hits, BM25 hits (with ``use_bm25``), fusion.  Returns
-    ``(fused_candidates, details)``; ``details`` is empty for the basic
-    method, as in the reference."""
+    dense hits (IVF probe hits with ``use_ivf``), BM25 hits (with
+    ``use_bm25``), fusion.  Returns ``(fused_candidates, details)``;
+    ``details`` is empty for the basic method, as in the reference."""
     _check_supported(cfg)
-    blocks = [dense_hits(index, req, cfg, window)]
+    if cfg.use_ivf:
+        if ivf is None:
+            raise ValueError("SearchConfig.use_ivf requires an IVFIndex "
+                             "(QueryEngine.build_ivf() first)")
+        blocks = [ivf_hits(index, ivf, req, cfg, window)]
+    else:
+        blocks = [dense_hits(index, req, cfg, window)]
     if cfg.use_bm25 and req.q_terms is not None and index.sparse is not None:
         blocks.append(bm25_hits(index, req, cfg, window))
     return fuse_blocks(index, blocks, cfg), {}
@@ -222,15 +273,19 @@ class QueryEngine:
     reference's result-dict shape.
     """
 
-    def __init__(self, index: CorpusIndex, meta: CorpusMeta, ivf=None,
-                 hier=None):
-        if ivf is not None:
-            raise NotImplementedError("IVF is not ported yet (ROADMAP A.12)")
+    def __init__(self, index: CorpusIndex, meta: CorpusMeta,
+                 ivf: Optional[IVFIndex] = None, hier=None):
+        if ivf is not None and not isinstance(ivf, IVFIndex):
+            raise NotImplementedError(
+                "ivf must be an IVFIndex; the sharded IVF is not ported yet "
+                "(ROADMAP A.14)")
         if hier is not None:
             raise NotImplementedError(
                 "the multi-device merge is not ported yet (ROADMAP A.14)")
         self.index = index
         self.meta = meta
+        # optional clustered index for SearchConfig(use_ivf=True)
+        self.ivf = ivf
         self.device = index.emb.device
         self._doc_ids_np = index.doc_id.cpu().numpy()
         self._valid_np = index.valid.cpu().numpy()
@@ -276,6 +331,37 @@ class QueryEngine:
                 longest = 0
         if longest:
             self.window = min(-(-longest // 128) * 128, index.n_pad)
+
+    def build_ivf(self, quantize: Optional[bool] = None, **kwargs) -> IVFIndex:
+        """Cluster the corpus on its device for ``use_ivf`` queries
+        (``kwargs`` go to ``index.ivf.build_ivf``).  An int8 corpus is
+        dequantized for clustering (k-means on raw codes would use the
+        wrong geometry); ``quantize=True`` then re-quantizes the IVF to
+        int8, otherwise the probe store stays f32."""
+        emb = self.index.emb
+        if self.index.emb_scale is not None:
+            emb = emb.float() * self.index.emb_scale[:, None]
+            self.ivf = build_ivf(emb, valid=self.index.valid, **kwargs)
+            if quantize:
+                self.ivf = quantize_ivf(self.ivf)
+        else:
+            self.ivf = build_ivf(emb, valid=self.index.valid, **kwargs)
+        return self.ivf
+
+    def cluster_order(self, **build_kwargs) -> "QueryEngine":
+        """A new engine over the corpus rearranged into IVF cluster order
+        (``index.ivf.cluster_order_index``): one row store serves the probe
+        and the flat paths.  Builds the IVF first if absent.  An int8
+        corpus keeps its int8 budget: the IVF is re-quantized before its
+        buffer becomes the corpus.  Documents are then fragmented, so the
+        new engine's window is 0 and IVF routing is by doc equality."""
+        if self.ivf is None:
+            self.build_ivf(**build_kwargs)
+        ivf = self.ivf
+        if self.index.emb_scale is not None and ivf.emb_perm.dtype != torch.int8:
+            ivf = quantize_ivf(ivf)
+        new_idx, new_meta, new_ivf = cluster_order_index(self.index, self.meta, ivf)
+        return QueryEngine(new_idx, new_meta, ivf=new_ivf)
 
     # -- routing ---------------------------------------------------------
     def routed_docs(
@@ -370,7 +456,7 @@ class QueryEngine:
         doc_ids = self.routed_docs(company, question, selected_years)
         if not doc_ids:
             raise ValueError(f"No report found with '{company}' company name.")
-        dm, dv, row_slot, ws, wl, _ = self.doc_masks(doc_ids, cfg.max_docs)
+        dm, dv, row_slot, ws, wl, sd = self.doc_masks(doc_ids, cfg.max_docs)
         q, qv = self._pad_request(query_embs, cfg.max_queries)
         q_terms = None
         if cfg.use_bm25 and self.index.sparse is not None:
@@ -379,7 +465,7 @@ class QueryEngine:
             texts = _bm25_texts(query_texts, question, cfg.max_queries)
             q_terms = torch.from_numpy(encode_queries_host(
                 texts, vocab_bits=self.index.sparse.vocab_bits)).to(self.device)
-        return Request(q, qv, dm, dv, q_terms, row_slot, ws, wl)
+        return Request(q, qv, dm, dv, q_terms, row_slot, ws, wl, sd)
 
     def search(
         self,
@@ -395,7 +481,8 @@ class QueryEngine:
         (numpy or tensor)."""
         req = self.prepare(query_embs, company, question, selected_years,
                            cfg, query_texts)
-        cands, details = search_device(self.index, req, cfg, self.window)
+        cands, details = search_device(self.index, req, cfg, self.window,
+                                       ivf=self.ivf if cfg.use_ivf else None)
         return (cands, details) if with_details else cands
 
     def search_many(self, *args, **kwargs):

@@ -225,12 +225,16 @@ def test_tensor_query_embeddings_and_bf16_store(engines, rng, tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(method="ssg"), "A.10"), (dict(method="triangulation"), "A.10"),
-    (dict(method="hybrid_expansion"), "A.10"), (dict(use_ivf=True), "A.12"),
+    (dict(method="hybrid_expansion"), "A.10"),
+    # IVF is ported: use_ivf without an IVFIndex is refused, as in the
+    # reference's engine
+    (dict(use_ivf=True), "build_ivf"),
     (dict(scan_rt=0.99), "A.11"),
-])
+], ids=["kw0-A.10", "kw1-A.10", "kw2-A.10", "kw3-A.12", "kw4-A.11"])
 def test_unported_options_raise(engines, rng, kw, item):
     _, te, embs = engines
-    with pytest.raises(NotImplementedError, match=item):
+    exc = ValueError if kw.get("use_ivf") else NotImplementedError
+    with pytest.raises(exc, match=item):
         te.search(_q_for(embs, 0, 0, rng), "金盘科技", cfg=SearchConfig(**kw))
 
 
@@ -240,5 +244,97 @@ def test_unported_engine_features_raise(engines):
         te.search_many([], "金盘科技")
     with pytest.raises(NotImplementedError, match="A.14"):
         QueryEngine(te.index, te.meta, hier=object())
-    with pytest.raises(NotImplementedError, match="A.12"):
+    # only a single-device IVFIndex is taken; a real one is accepted
+    with pytest.raises(NotImplementedError, match="A.14"):
         QueryEngine(te.index, te.meta, ivf=object())
+    ivf = QueryEngine(te.index, te.meta).build_ivf(n_clusters=4, iters=2)
+    assert QueryEngine(te.index, te.meta, ivf=ivf).ivf is ivf
+
+
+# ---- the IVF probe arm (use_ivf) ----------------------------------------
+
+IVF_CONFIGS = {
+    "ivf": dict(top_k=5, top_n=10, use_ivf=True),
+    "ivf_bm25": dict(top_k=5, top_n=40, use_ivf=True, use_bm25=True, bm25_top_k=12),
+    "ivf_bm25_sum": dict(top_k=5, top_n=40, use_ivf=True, use_bm25=True,
+                         bm25_top_k=12, fuse_mode="sum", dense_weight=0.5),
+    "ivf_nprobe2": dict(top_k=8, top_n=40, use_ivf=True, ivf_nprobe=2),
+}
+
+
+@pytest.fixture
+def ivf_engines(engines, tmp_path):
+    """Both engines over one IVF, built by JAX and carried to the port
+    through the sidecar, so k-means stays out of the comparison."""
+    from rag_challenge_2_tpu.index.store import save_ivf as jax_save_ivf
+    from rag_challenge_2_tpu_torch.index import load_ivf
+
+    je, te, embs = engines
+    jax_save_ivf(tmp_path / "idx.ivf.npz", je.build_ivf(iters=5))
+    te.ivf = load_ivf(tmp_path / "idx.ivf.npz", device="cpu")
+    return je, te, embs
+
+
+@pytest.mark.parametrize("mode", ["win_start", "mask", "pair_doc"])
+@pytest.mark.parametrize("name", list(IVF_CONFIGS))
+def test_ivf_search_matches_jax(ivf_engines, rng, name, mode):
+    je, te, embs = ivf_engines
+    if mode == "pair_doc":
+        je, te = je.cluster_order(), te.cluster_order()
+        assert te.window == 0 and te.ivf.cluster_doc is not None
+    elif mode == "mask":
+        je.window = te.window = 0
+    else:
+        assert te.window > 0 and te.ivf.list_row_min is not None
+    kw = IVF_CONFIGS[name]
+    q = np.concatenate([_q_for(embs, 0, 5, rng), _q_for(embs, 1, 7, rng)])
+    texts = ["营业收入 chunk5", "页面3 chunk7 金盘科技"]
+    for years in (None, [2024]):
+        jc, tc = JaxCfg(**kw), SearchConfig(**kw)
+        jres = je.materialize(je.search(q, "金盘科技", "营业收入", years, jc,
+                                        query_texts=texts), jc)
+        tres = te.materialize(te.search(q, "金盘科技", "营业收入", years, tc,
+                                        query_texts=texts), tc)
+        assert tres
+        assert_same_results(tres, jres)
+        routed = {te.meta.docs[d].sha1 for d in te.routed_docs("金盘科技", "", years)}
+        assert all(r["source_sha1"] in routed for r in tres)
+
+
+@pytest.mark.parametrize("order", [False, True])
+def test_ivf_arm_over_an_int8_corpus(tiny_corpus, tmp_path, rng, order):
+    """An int8 corpus is dequantized for clustering (f32 probe store);
+    cluster_order() re-quantizes the IVF so the corpus keeps int8."""
+    from rag_challenge_2_tpu.index.store import quantize_index
+    from rag_challenge_2_tpu.index.store import save_ivf as jax_save_ivf
+    from rag_challenge_2_tpu_torch.index import load_ivf
+
+    idx, meta, _, embs = tiny_corpus
+    idx8 = quantize_index(idx)
+    jax_save(tmp_path / "i8.npz", idx8, meta)
+    tidx, tmeta = load_index(tmp_path / "i8.npz", device="cpu")
+    je, te = JaxEngine(idx8, meta), QueryEngine(tidx, tmeta)
+    assert te.index.emb.dtype == torch.int8
+    jax_save_ivf(tmp_path / "i8.ivf.npz", je.build_ivf(iters=5))
+    te.ivf = load_ivf(tmp_path / "i8.ivf.npz", device="cpu")
+    assert te.ivf.emb_perm.dtype == torch.float32
+    if order:
+        je, te = je.cluster_order(), te.cluster_order()
+        assert te.ivf.emb_perm.dtype == torch.int8 and te.index.emb is te.ivf.emb_perm
+    q = np.concatenate([_q_for(embs, 0, 5, rng), _q_for(embs, 1, 7, rng)])
+    kw = dict(top_k=5, top_n=40, use_ivf=True, use_bm25=True, bm25_top_k=12)
+    jc, tc = JaxCfg(**kw), SearchConfig(**kw)
+    jres = je.materialize(je.search(q, "金盘科技", "营业收入", cfg=jc,
+                                    query_texts=["chunk5", "chunk7"]), jc)
+    tres = te.materialize(te.search(q, "金盘科技", "营业收入", cfg=tc,
+                                    query_texts=["chunk5", "chunk7"]), tc)
+    assert tres
+    assert_same_results(tres, jres)
+
+
+def test_ivf_search_finds_the_planted_chunk(ivf_engines, rng):
+    _, te, embs = ivf_engines
+    cfg = SearchConfig(top_k=5, top_n=10, use_ivf=True)
+    res = te.materialize(te.search(_q_for(embs, 1, 4, rng), "金盘科技",
+                                   selected_years=[2024], cfg=cfg), cfg)
+    assert res[0]["rep_row"] == 12 + 4

@@ -29,7 +29,21 @@ without printing a result:
    engine's ``use_ivf`` arm on phase 3's corpus held against the CPU
    engine in row-range and doc-equality routing; the arm at 1M with a
    per-stage split.
-6. the last line: ``{"ok": true, "device": {...}}``.
+6. the 10M-row int8 scan (BASELINE config 5): K3 against plain on phase
+   5's 1M store (f32 / bf16 within 1e-4, rows equal to phase 5's K1
+   oracle where untied) and at edge cases; 10M x 1024 rows made on the
+   card into a plain int8 and a centroid-residual store, K3 bitwise equal
+   to plain there; recall@10 against the f32 oracle and queries/s of
+   ``int8_topk``, ``approx_topk``, the 2-pass residual scan and the
+   rescored scan (gates: plain >= 0.89, rescored >= 0.94 and above
+   plain); the engine's int8 arm on phase 3's corpus against the CPU
+   engine, ``search_many`` of 16 requests against the CPU engine's and
+   against 16 ``search`` calls, and the hybrid at 10M with ``scan_rt`` None
+   and 0.95, K3 on each of its routed slots bitwise equal to plain.
+   Then K3's time on one slot against the batch size, the hybrid's
+   per-stage split, and the device's busy share over one window of calls
+   (``torch.profiler``).
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Weights are random from ``--seed`` unless a
 ``save_params`` npz is given.
@@ -108,6 +122,15 @@ def unit_rows(n, d, gen, dev):
     return x / x.norm(dim=1, keepdim=True)
 
 
+def untied(vals, tol):
+    """Positions whose value is apart from both neighbours by > 2 tol."""
+    import torch
+
+    step = (vals[:, 1:] - vals[:, :-1]).abs()
+    inf = torch.full_like(vals[:, :1], float("inf"))
+    return torch.minimum(torch.cat([inf, step], 1), torch.cat([step, inf], 1)) > 2 * tol
+
+
 def compare_k1(name, q, emb, k, mask=None):
     """Kernel vs plain: max abs diff of values, rows where untied."""
     import torch
@@ -121,11 +144,8 @@ def compare_k1(name, q, emb, k, mask=None):
     check(kv.shape == pv.shape, f"K1 {name}: shape {kv.shape} vs {pv.shape}")
     err = (kv - pv).abs().max().item()
     check(err <= K1_TOL, f"K1 {name}: max abs diff {err} > {K1_TOL}")
-    step = (pv[:, 1:] - pv[:, :-1]).abs()
-    inf = torch.full_like(pv[:, :1], float("inf"))
-    untied = torch.minimum(torch.cat([inf, step], 1),
-                           torch.cat([step, inf], 1)) > 2 * K1_TOL
-    check(torch.equal(ki[untied], pi[untied]), f"K1 {name}: untied rows differ")
+    u = untied(pv, K1_TOL)
+    check(torch.equal(ki[u], pi[u]), f"K1 {name}: untied rows differ")
     return err, kv, ki
 
 
@@ -140,9 +160,11 @@ def phase2_kernels(dev, flush, gen, csr):
 
     log("== phase 2: kernels vs plain PyTorch on the card")
     t0 = time.perf_counter()
-    kernels.load_library("dense_topk")
-    kernels.load_library("span_gather")
-    log(f"built kernels in {time.perf_counter() - t0:.2f} s")
+    kernels.build_all()                  # one nvcc per source, in parallel
+    for name in sorted(p.stem for p in kernels.CSRC.glob("*.cu")):
+        kernels.load_library(name)
+    log(f"built kernels ({', '.join(sorted(kernels.build_logs))}) in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, rep in kernels.build_logs.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -675,23 +697,23 @@ def phase5a_kernels(dev, gen, flush, stores, q, starts, W):
     return out
 
 
-def zero_counts():
+def _wrappers():
     from rag_challenge_2_tpu_torch.ops.dense_topk import dense_topk_fused
     from rag_challenge_2_tpu_torch.ops.probe_scores import probe_span_scores
     from rag_challenge_2_tpu_torch.ops.span_gather import gather_posting_spans
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
 
-    for fn in (dense_topk_fused, gather_posting_spans, probe_span_scores):
+    return {"dense_topk": dense_topk_fused, "span_gather": gather_posting_spans,
+            "probe_scores": probe_span_scores, "stream_topk": stream_topk}
+
+
+def zero_counts():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
-    from rag_challenge_2_tpu_torch.ops.dense_topk import dense_topk_fused
-    from rag_challenge_2_tpu_torch.ops.probe_scores import probe_span_scores
-    from rag_challenge_2_tpu_torch.ops.span_gather import gather_posting_spans
-
-    return {"dense_topk": dense_topk_fused.launches,
-            "span_gather": gather_posting_spans.launches,
-            "probe_scores": probe_span_scores.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase5c_engine(dev, ctx3):
@@ -770,8 +792,11 @@ def phase5_ivf(dev, seed, ctx3, N=1_000_000, D=1024, K=4096):
     log(f"IVF build on the card (k-means K={K}, 8 iters, balanced, seed 0): "
         f"{t_build:.2f} s, K {ivf.k_clusters}, max_list {ivf.max_list}, "
         f"n_pad {ivf.emb_perm.shape[0]}")
-    oracle = torch.cat([dense_topk_fused(q[s:s + 64].contiguous(), emb, 30)[1]
-                        for s in range(0, NQ, 64)]).cpu().numpy()
+    oracle_k1 = [dense_topk_fused(q[s:s + 64].contiguous(), emb, 30)
+                 for s in range(0, NQ, 64)]
+    oracle_v = torch.cat([v for v, _ in oracle_k1])
+    oracle_i = torch.cat([i for _, i in oracle_k1])
+    oracle = oracle_i.cpu().numpy()
     stores = {"float32": ivf,
               "bfloat16": dataclasses.replace(ivf, emb_perm=ivf.emb_perm.to(torch.bfloat16)),
               "int8": quantize_ivf(ivf)}
@@ -880,9 +905,491 @@ def phase5_ivf(dev, seed, ctx3, N=1_000_000, D=1024, K=4096):
         f"(runs {', '.join(f'{r * 1e3:.2f}' for r in runs)} ms)")
     log("IVF engine at 1M per-stage ms/call: "
         + ", ".join(f"{k_} {v:.3f}" for k_, v in per_call.items()))
+    # phase 6a holds K3 against plain on the same 1M store and queries,
+    # and its rows against this K1 oracle
+    ctx5 = dict(emb=emb, q=q, oracle_v=oracle_v, oracle_i=oracle_i)
     return dict(build_s=t_build, k_clusters=ivf.k_clusters, max_list=ivf.max_list,
                 sweep=sweep, kernels=k, engine=eng_out, engine_1m_qps=qps,
-                engine_1m_window_ms=[r * 1e3 for r in runs], engine_1m_stage_ms=per_call)
+                engine_1m_window_ms=[r * 1e3 for r in runs],
+                engine_1m_stage_ms=per_call), ctx5
+
+
+# --------------------------------------------------------------- phase 6
+
+def compare_k3(name, q, emb, k, mask=None, exact=False, **kw):
+    """K3 against its plain version on the same operands: int8 forms
+    bitwise (values and rows), f32 / bf16 values within 1e-4 and rows
+    equal where untied.  Returns ``(max abs diff, kernel values, rows)``."""
+    import torch
+
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    kv, ki = stream_topk(q, emb, k, mask, **kw)
+    pv, pi = stream_topk_plain(q, emb, k, mask, **kw)
+    torch.cuda.synchronize()
+    check(kv.shape == pv.shape, f"K3 {name}: shape {kv.shape} vs {pv.shape}")
+    err = (kv - pv).abs().max().item()
+    if exact:
+        check(torch.equal(kv, pv) and torch.equal(ki, pi),
+              f"K3 {name}: not bitwise equal to plain (max |diff| {err})")
+    else:
+        check(err <= K1_TOL, f"K3 {name}: max abs diff {err} > {K1_TOL}")
+        u = untied(pv, K1_TOL)
+        check(torch.equal(ki[u], pi[u]), f"K3 {name}: untied rows differ")
+    return err, kv, ki
+
+
+def phase6a_1m(dev, flush, ctx5):
+    """K3 against plain on phase 5's 1M x 1024 store with its 127 queries
+    (f32 and bf16, k = 30), the f32 rows against phase 5's K1 oracle, and
+    the edge cases."""
+    import torch
+
+    from rag_challenge_2_tpu_torch.ops.quant import quantize_rows
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    emb, q = ctx5["emb"], ctx5["q"]
+    N, D = emb.shape
+    out, err_max = {}, 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        e = emb if dt == torch.float32 else emb.to(dt)
+        err, kv, ki = compare_k3(f"N={N} {dt}", q, e, 30)
+        err_max = max(err_max, err)
+        if dt == torch.float32:
+            u = untied(ctx5["oracle_v"], K1_TOL)
+            check(torch.equal(ki[u], ctx5["oracle_i"][u]),
+                  "K3 f32 rows differ from phase 5's K1 oracle")
+            check((kv - ctx5["oracle_v"]).abs().max().item() <= K1_TOL,
+                  "K3 f32 values differ from phase 5's K1 oracle")
+        ms = cuda_ms(lambda: stream_topk(q, e, 30), flush, reps=10)
+        pms = cuda_ms(lambda: stream_topk_plain(q, e, 30), flush, reps=10)
+        name = str(dt).split(".")[1]
+        out[name] = dict(N=N, B=q.shape[0], k=30, err=err, ms=ms, plain_ms=pms)
+        log(f"K3 {name} B={q.shape[0]} N={N} D={D} k=30: max|diff| {err:.3g}  "
+            f"kernel {ms:.3f} ms  plain {pms:.3f} ms")
+    log("K3 f32 rows == phase 5's K1 oracle wherever untied")
+
+    # edge cases on slices of the same store, f32 and int8
+    e8, sc = quantize_rows(emb[:200_000])
+    f32 = emb[:200_000]
+    few = torch.zeros(200_000, dtype=torch.bool, device=dev)
+    few[torch.tensor([3, 70_000, 199_999], device=dev)] = True
+    q128 = torch.cat([q, q[:1]]).contiguous()
+    qi8, qsc = quantize_rows(q)
+    qi8_128, qsc_128 = quantize_rows(q128)
+    ties = emb[:700].repeat(3, 1).contiguous()
+    cases = {
+        "k=30 > 3 eligible rows": (q, f32, dict(mask=few)),
+        "all masked": (q, f32, dict(mask=torch.zeros_like(few))),
+        "ties 3x700": (q, ties, {}),
+        "B=1": (q[:1].contiguous(), f32, {}),
+        "B=128": (q128, f32, {}),
+        "int8 k=30 > 3 eligible rows": (qi8, e8, dict(mask=few, q_scale=qsc, row_scale=sc)),
+        "int8 all masked": (qi8, e8, dict(mask=torch.zeros_like(few), q_scale=qsc,
+                                          row_scale=sc)),
+        "int8 B=1": (qi8[:1].contiguous(), e8, dict(q_scale=qsc[:1].contiguous(),
+                                                    row_scale=sc)),
+        "int8 B=128": (qi8_128, e8, dict(q_scale=qsc_128, row_scale=sc)),
+    }
+    for name, (qq, e, kw) in cases.items():
+        mask = kw.pop("mask", None)
+        err, kv, ki = compare_k3(name, qq, e, 30, mask, exact=e.dtype == torch.int8, **kw)
+        err_max = max(err_max, err)
+        if "eligible" in name:
+            check(bool((ki[:, 3:] == -1).all()) and bool((kv[:, 3:] == -3.0e38).all()),
+                  f"K3 {name}: slots past the eligible rows must be (-1, NEG_INF)")
+        if "all masked" in name:
+            check(bool((ki == -1).all()), f"K3 {name}: rows must all be -1")
+        if name.startswith("ties"):
+            same = kv[:, 1:] == kv[:, :-1]
+            check(bool(same.any()) and bool((ki[:, 1:][same] > ki[:, :-1][same]).all()),
+                  "K3 ties: equal values must come in ascending row order")
+    log(f"K3 edge cases ({', '.join(cases)}) agree with plain; "
+        f"max|diff| over all f32/bf16 cases {err_max:.3g}")
+    out["err"] = err_max
+    return out
+
+
+def make_10m(dev, seed, N=10_000_000, D=1024, C=500_000, K_CODE=16_384):
+    """BASELINE config 5's data on the card (``bench.py`` 326-681): 10M
+    unit rows = one of 4,096 unit centres + (0.35/sqrt D) noise, made in
+    500k chunks from the phase's own generator; 127 queries = rows of the
+    first chunk + (0.25/sqrt D) noise.  Each chunk's f32 top-10 (the plain
+    version) merges into the oracle before the chunk is quantized into a
+    plain int8 store and a centroid-residual store (codebook: k-means
+    K = 16,384 on a 250k sample, 6 iterations)."""
+    import torch
+
+    from rag_challenge_2_tpu_torch.ops.kmeans import kmeans
+    from rag_challenge_2_tpu_torch.ops.quant import quantize_rows, quantize_rows_residual
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk_plain
+
+    NQ, N_CENTERS = 127, 4096
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    centers = unit_rows(N_CENTERS, D, gen, dev)
+
+    def chunk():
+        a = torch.randint(0, N_CENTERS, (C,), generator=gen, device=dev)
+        e = centers[a] + (0.35 / D ** 0.5) * torch.randn(C, D, generator=gen, device=dev)
+        return e / e.norm(dim=1, keepdim=True)
+
+    t0 = time.perf_counter()
+    e = chunk()
+    r = torch.randint(0, C, (NQ,), generator=gen, device=dev)
+    q = e[r] + (0.25 / D ** 0.5) * torch.randn(NQ, D, generator=gen, device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    code, _ = kmeans(e[:250_000], K_CODE, iters=6, seed=0)
+    torch.cuda.synchronize()
+    t_code = time.perf_counter() - t0
+    buf = torch.empty((N, D), dtype=torch.int8, device=dev)
+    scales = torch.empty(N, device=dev)
+    rbuf = torch.empty((N, D), dtype=torch.int8, device=dev)
+    rscales = torch.empty(N, device=dev)
+    rassign = torch.empty(N, dtype=torch.int32, device=dev)
+    top_v = torch.full((NQ, 10), -3.0e38, device=dev)
+    top_i = torch.full((NQ, 10), -1, dtype=torch.int64, device=dev)
+    for i in range(N // C):
+        if i:
+            e = chunk()
+        sl = slice(i * C, (i + 1) * C)
+        v, j = stream_topk_plain(q, e, 10, block=C)
+        cv = torch.cat([top_v, v], 1)
+        ci = torch.cat([top_i, j.long() + i * C], 1)
+        top_v, nj = torch.sort(cv, dim=1, descending=True, stable=True)
+        top_v = top_v[:, :10]
+        top_i = torch.gather(ci, 1, nj[:, :10])
+        buf[sl], scales[sl] = quantize_rows(e)
+        rbuf[sl], rscales[sl], rassign[sl] = quantize_rows_residual(e, code)
+    del e
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    log(f"10M data: {N} x {D} unit rows made on the card in {C // 1000}k chunks; "
+        f"codebook k-means K={K_CODE} on 250k rows, 6 iters: {t_code:.2f} s; "
+        f"oracle + plain int8 + residual stores: {t_all:.2f} s in all; "
+        f"stores {2 * N * D / 1e9:.1f} GB")
+    return dict(q=q, oracle=top_i.cpu().numpy(), buf=buf, scales=scales, rbuf=rbuf,
+                rscales=rscales, rassign=rassign, code=code, N=N, D=D)
+
+
+def phase6a_10m(dev, flush, data):
+    """K3 against plain at 10M for the int8 forms: bitwise."""
+    from rag_challenge_2_tpu_torch.ops.quant import quantize_query_2pass, quantize_rows
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    q, N = data["q"], data["N"]
+    q8, qs = quantize_rows(q)
+    q2, s_hi, s_lo = quantize_query_2pass(q)
+    qc = (q @ data["code"].T).contiguous()
+    forms = {
+        "int8": (q8, data["buf"], dict(q_scale=qs, row_scale=data["scales"])),
+        "int8 2-pass": (q2, data["buf"], dict(q_scale=s_hi, q_scale_lo=s_lo,
+                                              row_scale=data["scales"])),
+        "residual 2-pass": (q2, data["rbuf"], dict(
+            q_scale=s_hi, q_scale_lo=s_lo, row_scale=data["rscales"],
+            assign=data["rassign"], qc=qc)),
+    }
+    out = {}
+    for name, (qq, e, kw) in forms.items():
+        compare_k3(f"{name} N={N}", qq, e, 30, exact=True, **kw)
+        ms = cuda_ms(lambda: stream_topk(qq, e, 30, **kw), flush, reps=5, warmup=1)
+        pms = cuda_ms(lambda: stream_topk_plain(qq, e, 30, **kw), flush, reps=3, warmup=1)
+        ops = 2 * q.shape[0] * N * data["D"] * (2 if "2-pass" in name else 1)
+        out[name] = dict(N=N, B=q.shape[0], k=30, ms=ms, plain_ms=pms,
+                         tops=ops / ms / 1e9)
+        log(f"K3 {name} B={q.shape[0]} N={N} k=30: bitwise equal to plain  "
+            f"kernel {ms:.2f} ms ({ops / ms / 1e9:.1f} int8 TOP/s)  plain {pms:.2f} ms")
+    return out
+
+
+def phase6b_scans(dev, data):
+    """Recall@10 against the f32 oracle and queries/s (127 per call) of
+    the four scan arms, with the gates."""
+    import torch
+
+    from rag_challenge_2_tpu_torch.ops.quant import (
+        int8_residual_topk, int8_residual_topk_rescored, int8_topk)
+    from rag_challenge_2_tpu_torch.ops.topk import approx_topk
+
+    q, buf, sc = data["q"], data["buf"], data["scales"]
+    rb, rs, ra, code = data["rbuf"], data["rscales"], data["rassign"], data["code"]
+    arms = {
+        "int8_topk": lambda: int8_topk(q, buf, sc, 10),
+        "approx_topk": lambda: approx_topk(q, buf, 10, recall_target=0.95, row_scale=sc),
+        "residual_2pass": lambda: int8_residual_topk(q, rb, rs, ra, code, 10,
+                                                     query_2pass=True),
+        "rescored": lambda: int8_residual_topk_rescored(q, rb, rs, ra, code, 10,
+                                                        k_cand=48, recall_target=0.95),
+    }
+    for fn in arms.values():                              # warm-up
+        fn()
+    zero_counts()
+    out = {}
+    for name, fn in arms.items():
+        runs = []
+        for _ in range(3):
+            (v, i), t = wall(fn, dev)
+            runs.append(t)
+        check(bool(torch.isfinite(v).all()), f"10M {name}: non-finite scores")
+        r10 = recall_at(i.cpu().numpy(), data["oracle"], 10)
+        t = statistics.median(runs)
+        out[name] = dict(recall10=r10, qps=q.shape[0] / t, ms=t * 1e3)
+        log(f"10M {name}: recall@10 {r10:.4f} vs the f32 oracle, "
+            f"{q.shape[0] / t:.1f} queries/s ({t * 1e3:.2f} ms per 127 queries)")
+    launches = read_counts()
+    log(f"10M scan launches: {launches}")
+    check(launches["stream_topk"] > 0, f"the 10M scans never launched K3: {launches}")
+    plain, resc = out["int8_topk"]["recall10"], out["rescored"]["recall10"]
+    check(plain >= 0.89, f"10M plain int8 recall@10 {plain} < 0.89")
+    check(resc >= 0.94, f"10M rescored recall@10 {resc} < 0.94")
+    check(resc > plain, f"10M rescored recall@10 {resc} <= plain int8 {plain}")
+    check(out["approx_topk"]["recall10"] == plain, "approx_topk must equal the exact scan")
+    return dict(arms=out, launches=launches)
+
+
+def profile_hybrid10m(dev, idx, hreqs, cfg, window, data):
+    """K3's time on one routed slot against the batch size, the hybrid's
+    per-stage split (host clock around each stage), and the device's busy
+    share over one window of calls (``torch.profiler``: summed device
+    kernel time over wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_challenge_2_tpu_torch.ops.quant import quantize_rows
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+    from rag_challenge_2_tpu_torch.retrieval.engine import (
+        bm25_hits, dense_hits, fuse_blocks, search_device)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    e, r = data["buf"][:window], data["scales"][:window]
+    by_batch = {}
+    for B in (1, 4, 8, 32, 64, 127):
+        q8, qs = quantize_rows(data["q"][:B])
+        by_batch[B] = cuda_ms(lambda: stream_topk(q8, e, 30, q_scale=qs, row_scale=r),
+                              flush, reps=10)
+    del flush
+    log(f"K3 int8 on one slot (N={window}, k=30) by batch: "
+        + ", ".join(f"B={b} {ms:.3f} ms" for b, ms in by_batch.items()))
+    stages = dict(dense=0.0, bm25=0.0, fuse=0.0)
+    for rq in hreqs:
+        bd, t1 = wall(lambda: dense_hits(idx, rq, cfg, window), dev)
+        bb, t2 = wall(lambda: bm25_hits(idx, rq, cfg, window), dev)
+        _, t3 = wall(lambda: fuse_blocks(idx, [bd, bb], cfg), dev)
+        for name, t in zip(stages, (t1, t2, t3)):
+            stages[name] += t
+    stage_ms = {k: v / len(hreqs) * 1e3 for k, v in stages.items()}
+
+    def device_us(ev):
+        return (getattr(ev, "self_device_time_total", 0)
+                or getattr(ev, "self_cuda_time_total", 0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for rq in hreqs:
+            search_device(idx, rq, cfg, window=window)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = sorted(prof.key_averages(), key=device_us, reverse=True)
+    device_ms = sum(device_us(ev) for ev in evs) / 1e3
+    top = {ev.key[:60]: device_us(ev) / 1e3 for ev in evs[:6] if device_us(ev)}
+    log("hybrid 10M per-stage ms/call: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()))
+    log(f"hybrid 10M profiled window of {len(hreqs)} calls: wall {wall_ms:.2f} ms, "
+        f"device kernels {device_ms:.2f} ms = {100 * device_ms / wall_ms:.1f}% busy; top: "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in top.items()))
+    return dict(k3_ms_by_batch=by_batch, stage_ms=stage_ms, wall_ms=wall_ms,
+                device_ms=device_ms, busy=device_ms / wall_ms, top_ms=top)
+
+
+def phase6c_engine(dev, gen, ctx3, data):
+    """The engine's int8 arm: phase 3's corpus through quantize_index held
+    against the CPU engine; search_many of 16 requests against the CPU
+    engine's and 16 search calls (f32 and int8 stores); the hybrid at 10M
+    with scan_rt None and 0.95, K3 on its routed slots against plain, and
+    :func:`profile_hybrid10m`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rag_challenge_2_tpu_torch.index import quantize_index
+    from rag_challenge_2_tpu_torch.index.schema import CorpusIndex, SparseIndex
+    from rag_challenge_2_tpu_torch.retrieval import (
+        QueryEngine, Request, SearchConfig, search_device)
+
+    out = {}
+    eng = ctx3["eng"]
+    eng8 = QueryEngine(quantize_index(eng.index), eng.meta)
+    cpu8 = QueryEngine(eng8.index.to("cpu"), eng.meta)
+    cfg = SearchConfig(method="basic", top_k=30, top_n=30, use_bm25=True,
+                       bm25_top_k=30)
+    reqs = ctx3["requests"]
+
+    def run_all(e):
+        return [e.search(qe, COMPANY, question, years, cfg, query_texts=qtexts)
+                for question, qtexts, years, qe in reqs]
+
+    run_all(eng8)                                          # warm-up
+    zero_counts()
+    cands, t = wall(lambda: run_all(eng8), dev)
+    launches = read_counts()
+    check(launches["stream_topk"] > 0 and launches["dense_topk"] == 0,
+          f"int8 engine: the dense arm must run K3 only: {launches}")
+    reordered = 0
+    for (question, qtexts, years, qe), c in zip(reqs, cands):
+        ref = cpu8.search(qe.cpu(), COMPANY, question, years, cfg, query_texts=qtexts)
+        reordered += same_candidates(c, ref, 1e-4)
+    nq = sum(len(r[1]) for r in reqs)
+    log(f"int8 engine (phase 3's corpus through quantize_index) launches {launches}: "
+        f"GPU == CPU plain engine on all {len(reqs)} requests (tie groups reordered: "
+        f"{reordered}); {nq} queries in {t * 1e3:.1f} ms = {nq / t:.1f} queries/s")
+    out["deploy_int8"] = dict(launches=launches, qps=nq / t, reordered_ties=reordered)
+
+    # search_many: 16 requests of one route = 128 stacked queries per slot,
+    # held against the CPU engine's search_many (plain versions) and
+    # against 16 search calls on the card
+    question, _, years, _ = reqs[0]
+    qes = [r[3] for r in reqs]
+    texts = [r[1] for r in reqs]
+    cpu_f = QueryEngine(eng.index.to("cpu"), eng.meta)
+    for name, e, cpu_e in (("float32", eng, cpu_f), ("int8", eng8, cpu8)):
+        e.search_many(qes, COMPANY, question, years, cfg, query_texts_list=texts)
+        zero_counts()
+        many, t_many = wall(lambda: e.search_many(qes, COMPANY, question, years, cfg,
+                                                  query_texts_list=texts), dev)
+        launches = read_counts()
+        check(launches["stream_topk"] > 0 and launches["dense_topk"] == 0,
+              f"search_many ({name}): 128 stacked queries must run K3: {launches}")
+        singles, t_one = wall(lambda: [
+            e.search(qe, COMPANY, question, years, cfg, query_texts=tx)
+            for qe, tx in zip(qes, texts)], dev)
+        ref = cpu_e.search_many([qe.cpu() for qe in qes], COMPANY, question, years, cfg,
+                                query_texts_list=texts)
+        reordered = sum(same_candidates(a, b, 1e-4) for a, b in zip(many, ref))
+        reordered += sum(same_candidates(a, b, 1e-4) for a, b in zip(many, singles))
+        log(f"search_many ({name} store) of {len(qes)} requests == the CPU engine's "
+            f"search_many == {len(qes)} search calls "
+            f"(tie groups reordered: {reordered}); launches {launches}; "
+            f"{nq / t_many:.1f} vs {nq / t_one:.1f} queries/s")
+        out[f"search_many_{name}"] = dict(launches=launches, qps=nq / t_many,
+                                          qps_separate=nq / t_one)
+
+    # the hybrid at 10M (bench.py:433-477): 6 docs, 3 routed, Q = 4
+    N = data["N"]
+    N_DOCS, Q_BATCH, T, REPS = 6, 4, 64, 16
+    csr = make_csr(dev, gen, N)
+    rows = torch.arange(N, dtype=torch.int32, device=dev)
+    per_doc = N // N_DOCS
+    doc_id = (rows // per_doc).clamp(max=N_DOCS - 1)
+    sparse = SparseIndex(
+        indptr=csr["indptr"], chunk_ids=csr["chunk_ids"], tf=csr["tf"],
+        df=csr["df"], chunk_len=csr["chunk_len"], avgdl=csr["chunk_len"].mean(),
+        dl=csr["dl"], vocab_bits=18, max_postings=csr["W"], dma_pad=csr["dma_pad"])
+    idx = CorpusIndex(
+        emb=data["buf"], doc_id=doc_id, page=rows % 500 + 1, year=2020 + doc_id,
+        company_id=torch.zeros_like(rows), kind=torch.zeros_like(rows),
+        page_seg=rows // 4, chunk_in_doc=rows - doc_id * per_doc,
+        valid=torch.ones(N, dtype=torch.bool, device=dev), sparse=sparse,
+        emb_scale=data["scales"], n_chunks=N, n_pages=N // 4, n_docs=N_DOCS,
+        dim=data["D"])
+    doc_masks = torch.stack([doc_id == d for d in range(N_DOCS)])
+    doc_valid = np.array([True, True, True, False, False, False])
+    row_slot = torch.where(doc_id < 3, doc_id, N_DOCS).to(torch.int32)
+    ws = np.arange(N_DOCS, dtype=np.int32) * per_doc
+    wl = np.diff(np.append(ws, N)).astype(np.int32)
+    q = data["q"]
+    NQ = q.shape[0]
+    q_valid = torch.ones(Q_BATCH, dtype=torch.bool, device=dev)
+    q_terms = torch.randint(0, csr["V"], (Q_BATCH, T), generator=gen, device=dev,
+                            dtype=torch.int32)
+    hreqs = [Request(q[(r * Q_BATCH) % (NQ - Q_BATCH):][:Q_BATCH].contiguous(),
+                     q_valid, doc_masks, doc_valid, q_terms, row_slot, ws, wl)
+             for r in range(REPS)]
+    fused_of = {}
+    for rt in (None, 0.95):
+        c = SearchConfig(method="basic", top_k=30, max_queries=Q_BATCH,
+                         max_docs=N_DOCS, top_n=30, use_bm25=True, bm25_top_k=30,
+                         scan_rt=rt)
+
+        def window():
+            return [search_device(idx, rq, c, window=per_doc)[0] for rq in hreqs]
+
+        window()                                           # warm-up
+        zero_counts()
+        runs = []
+        for _ in range(3):
+            fused, t = wall(window, dev)
+            runs.append(t)
+        launches = read_counts()
+        check(launches["stream_topk"] > 0 and launches["span_gather"] > 0,
+              f"hybrid 10M (scan_rt={rt}): K3 or K2 never launched: {launches}")
+        for f in fused:
+            keys = f.key[f.key >= 0]
+            check(keys.numel() > 0 and bool((keys < 3 * per_doc).all()),
+                  "hybrid 10M: hits outside the 3 routed docs")
+            check(bool(torch.isfinite(f.score).all()), "hybrid 10M: non-finite scores")
+        t = statistics.median(runs)
+        fused_of[rt] = fused
+        out[f"hybrid_10m_rt{rt}"] = dict(launches=launches, qps=Q_BATCH * REPS / t,
+                                         window_ms=[r_ * 1e3 for r_ in runs])
+        log(f"hybrid 10M int8 (6 docs, 3 routed, {REPS} calls x {Q_BATCH} queries, "
+            f"scan_rt={rt}): median of 3 windows {t * 1e3:.2f} ms = "
+            f"{Q_BATCH * REPS / t:.1f} queries/s (runs "
+            f"{', '.join(f'{r_ * 1e3:.2f}' for r_ in runs)} ms); launches {launches}")
+
+    # K3 as dense_hits runs it on each routed slot of one hybrid request:
+    # the request's int8 codes against buf[ws : ws + wl] with the slot's
+    # emb_scale slice, bitwise equal to plain; dense_topk returns K3's result
+    from rag_challenge_2_tpu_torch.ops.quant import quantize_rows
+    from rag_challenge_2_tpu_torch.ops.topk import dense_topk
+
+    q0 = hreqs[0].q
+    q8, qs = quantize_rows(q0)
+    for m in range(3):
+        s0, s1 = int(ws[m]), int(ws[m] + wl[m])
+        e_m, sc_m = data["buf"][s0:s1], data["scales"][s0:s1]
+        _, kv, ki = compare_k3(f"hybrid slot {m} ({s1 - s0} rows)", q8, e_m, 30,
+                               exact=True, q_scale=qs, row_scale=sc_m)
+        dv, di = dense_topk(q0, e_m, 30, row_scale=sc_m)
+        check(torch.equal(dv, kv) and torch.equal(di.long(), ki.long()),
+              f"hybrid 10M slot {m}: dense_topk differs from K3")
+    log(f"hybrid 10M: K3 on each routed slot ({int(wl[0])} rows, B={Q_BATCH}, "
+        "emb_scale slice) bitwise equal to plain; dense_topk == K3")
+    out["hybrid_10m_profile"] = profile_hybrid10m(
+        dev, idx, hreqs, dataclasses.replace(c, scan_rt=None), per_doc, data)
+    overlap = []
+    for a, b in zip(fused_of[None], fused_of[0.95]):
+        ka = set(a.key.tolist()) - {-1}
+        kb = set(b.key.tolist()) - {-1}
+        overlap.append(len(ka & kb) / max(1, len(ka)))
+    out["hybrid_10m_overlap"] = float(np.mean(overlap))
+    log(f"hybrid 10M top-n overlap, scan_rt 0.95 vs exact: {np.mean(overlap):.4f} "
+        "(scan_rt is computed exactly on the card)")
+    check(out["hybrid_10m_overlap"] == 1.0, "scan_rt must not change the results")
+    return out
+
+
+def phase6_scan10m(dev, seed, ctx3, ctx5):
+    import torch
+
+    log("== phase 6: the 10M-row int8 scan (BASELINE config 5 on one card)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    k3_1m = phase6a_1m(dev, flush, ctx5)
+    ctx5.clear()                                           # phase 5's 1M stores
+    torch.cuda.empty_cache()
+    data = make_10m(dev, seed)
+    k3_10m = phase6a_10m(dev, flush, data)
+    del flush
+    p6b = phase6b_scans(dev, data)
+    for name in ("rbuf", "rscales", "rassign"):            # the residual store
+        del data[name]
+    torch.cuda.empty_cache()
+    p6c = phase6c_engine(dev, gen, ctx3, data)
+    log(f"phase 6 took {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return dict(k3_1m=k3_1m, k3_10m=k3_10m, scans=p6b, engine=p6c)
 
 
 # ------------------------------------------------------------------- main
@@ -934,9 +1441,12 @@ def main(argv=None):
     p4 = phase4_scale(dev, gen, csr)
     del csr
     torch.cuda.empty_cache()
-    p5 = phase5_ivf(dev, args.seed, ctx3)
+    p5, ctx5 = phase5_ivf(dev, args.seed, ctx3)
+    torch.cuda.empty_cache()
+    p6 = phase6_scan10m(dev, args.seed, ctx3, ctx5)
 
-    log("summary " + json.dumps({"phase3": p3, "phase4": p4, "phase5": p5, "kernels": k}))
+    log("summary " + json.dumps({"phase3": p3, "phase4": p4, "phase5": p5,
+                                 "phase6": p6, "kernels": k}))
     big = [c for c in k["k1"] if c["N"] == 250_000 and c["dtype"] == "bfloat16"][0]
     kernels_line = {"kernels": [
         {"name": "dense_topk", "route": "cuda",
@@ -959,6 +1469,14 @@ def main(argv=None):
          "max_abs_err": p5["kernels"]["k4_err"],
          "ms": p5["kernels"]["float32"]["ms"],
          "plain_ms": p5["kernels"]["float32"]["plain_ms"]},
+        {"name": "stream_topk", "route": "cuda",
+         "source": "rag_challenge_2_tpu_torch/csrc/stream_topk.cu",
+         "replaces": "rag_challenge_2_tpu/ops/pallas_topk_stream.py:145",
+         # the 10M scans (6b) and the engine's int8 arm at 10M (6c)
+         "launches": p6["scans"]["launches"]["stream_topk"]
+         + p6["engine"]["hybrid_10m_rtNone"]["launches"]["stream_topk"],
+         "max_abs_err": p6["k3_1m"]["err"],
+         "ms": p6["k3_10m"]["int8"]["ms"], "plain_ms": p6["k3_10m"]["int8"]["plain_ms"]},
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,13 @@ Layout (bottom-up):
     device.py   device resolution + the f32 precision settings
     utils/      tokenizer, native CSR/tokenizer bridge, kernel builder
     ops/        dense top-k (kernel K1), posting-span gather (kernel K2),
-                IVF probe span scores (kernel K4), k-means, int8 rows,
-                BM25 scoring, hit fusion
-    index/      index dataclasses, host builder, npz persistence, IVF
+                the streaming scan with a carried top-k (kernel K3), IVF
+                probe span scores (kernel K4), k-means, the int8 and
+                centroid-residual stores, BM25 scoring, hit fusion
+    index/      index dataclasses, host builder, npz persistence,
+                quantize_index, IVF
     retrieval/  routing and the query engine (basic method, hybrid BM25,
-                IVF probe arm)
+                IVF probe arm, f32/bf16/int8 stores, search_many)
     models/     the transformer encoder (inference)
     csrc/       the hand-written CUDA kernels for sm_90a
 """

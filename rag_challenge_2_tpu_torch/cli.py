@@ -2,7 +2,8 @@
 
     python -m rag_challenge_2_tpu_torch query --index PATH --company NAME \
         --question TEXT [--use-bm25] [--top-n 5] [--params ENCODER.npz] \
-        [--use-ivf [--ivf-nprobe 8] [--cluster-order]] [--device cuda|cpu]
+        [--use-ivf [--ivf-nprobe 8] [--cluster-order]] \
+        [--quantize-int8] [--scan-rt RT] [--device cuda|cpu]
 
 Mirrors the reference's ``main.py query``: load the index, embed the
 question with the in-repo encoder (random weights from a seed unless a
@@ -10,6 +11,10 @@ question with the in-repo encoder (random weights from a seed unless a
 chunks with their scores.  With ``--use-ivf`` the dense arm probes an IVF
 index: the ``<index>.ivf.npz`` sidecar when it was built from this exact
 index file (by fingerprint), else one is built on the device and saved.
+``--quantize-int8`` serves from the int8 variant of the index
+(``index.store.quantize_index``) and ``--scan-rt`` sets
+``SearchConfig.scan_rt``: the counterparts of the reference's
+``RunConfig.quantize_int8`` / ``scan_rt``.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 
 
 def query(args: argparse.Namespace) -> List[str]:
-    from .index.store import load_index
+    from .index.store import load_index, quantize_index
     from .models.encoder import (
         EmbeddingModel, EncoderConfig, from_jax_params, load_params_npz)
     from .retrieval.engine import QueryEngine, SearchConfig
@@ -30,6 +35,8 @@ def query(args: argparse.Namespace) -> List[str]:
     idx, meta = load_index(args.index, device=args.device)
     if meta is None:
         raise SystemExit(f"{args.index}.meta.json is missing")
+    if args.quantize_int8:
+        idx = quantize_index(idx)
     params = (from_jax_params(load_params_npz(args.params))
               if args.params else None)
     model = EmbeddingModel(
@@ -41,7 +48,7 @@ def query(args: argparse.Namespace) -> List[str]:
         eng = _with_ivf(eng, Path(args.index), args)
     cfg = SearchConfig(method="basic", top_n=args.top_n, top_k=args.top_n,
                        use_bm25=args.use_bm25, use_ivf=args.use_ivf,
-                       ivf_nprobe=args.ivf_nprobe)
+                       ivf_nprobe=args.ivf_nprobe, scan_rt=args.scan_rt)
     q_emb = model.embed_device([args.question])
     cands = eng.search(q_emb, args.company, args.question, cfg=cfg,
                        query_texts=[args.question])
@@ -89,6 +96,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     q.add_argument("--ivf-nprobe", type=int, default=8)
     q.add_argument("--cluster-order", action="store_true",
                    help="serve from the IVF's cluster-ordered store (with --use-ivf)")
+    q.add_argument("--quantize-int8", action="store_true",
+                   help="serve from the int8 variant of the index")
+    q.add_argument("--scan-rt", type=float, default=None,
+                   help="SearchConfig.scan_rt (accepted; the scan stays exact)")
     q.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     for line in query(args):

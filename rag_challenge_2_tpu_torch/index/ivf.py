@@ -27,7 +27,7 @@ from ..ops.kmeans import assign_clusters, kmeans, kmeans_batched
 from ..ops.probe_scores import ROW_ALIGN, dma_slack_rows, probe_span_scores
 from ..ops.quant import quantize_rows
 from ..ops.span_gather import gather_posting_spans
-from ..ops.topk import NEG_INF
+from ..ops.topk import NEG_INF, stable_topk
 from .schema import CorpusIndex, _move
 
 
@@ -427,13 +427,6 @@ def cluster_order_index(idx: CorpusIndex, meta, ivf: IVFIndex):
     return new_idx, new_meta, new_ivf
 
 
-def _stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis with ties to the lowest index, the way
-    ``lax.top_k`` breaks them (``torch.topk`` gives no tie order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 @torch.inference_mode()
 def select_probes(
     index: IVFIndex,
@@ -479,7 +472,7 @@ def select_probes(
             hits = torch.zeros((B, K + 1), dtype=torch.float32, device=q.device)
             hits.index_add_(1, pc, row_ok.float())
             coarse = torch.where(hits[:, :K] > 0, coarse, neg)
-    return _stable_topk(coarse, min(nprobe, K))[1]
+    return stable_topk(coarse, min(nprobe, K))[1]
 
 
 @torch.inference_mode()
@@ -573,7 +566,7 @@ def ivf_search(
                        else torch.gather(mask, 1, safe))
         rows_flat = ids_flat
     scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
-    vals, idx_top = _stable_topk(scores, k_eff)
+    vals, idx_top = stable_topk(scores, k_eff)
     rows = torch.gather(rows_flat, 1, idx_top)
     rows = torch.where(vals > NEG_INF / 2, rows, torch.full_like(rows, -1))
     return vals, rows.to(torch.int32)

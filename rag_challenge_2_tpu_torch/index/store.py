@@ -7,7 +7,8 @@ kept on disk as its raw uint16 bits (npz has no bf16) and read back with
 ``torch.from_numpy(u16).view(torch.bfloat16)``, which needs no
 ``ml_dtypes``.  The per-posting ``dl`` and the CSR slack ``dma_pad`` are
 derived at load time, not persisted.  IVF sidecars (``save_ivf`` /
-``load_ivf``) share the reference's npz layout too.
+``load_ivf``) share the reference's npz layout too.  ``quantize_index``
+turns a loaded index into its int8 variant.
 """
 
 from __future__ import annotations
@@ -172,6 +173,20 @@ def load_index(
             page_seg_info=[tuple(p) for p in side["page_seg_info"]],
         )
     return idx, meta
+
+
+def quantize_index(idx: CorpusIndex) -> CorpusIndex:
+    """The int8 variant of a corpus index: per-row int8 codes and scales
+    (``ops/quant.quantize_rows``), a quarter of the f32 store's bytes.
+    The engine dispatches on ``emb.dtype``.  An int8 index comes back as
+    it is: quantizing its codes again would replace the true row scales
+    with ~1 and corrupt every dense score."""
+    from ..ops.quant import quantize_rows
+
+    if idx.emb.dtype == torch.int8:
+        return idx
+    emb_i8, scale = quantize_rows(idx.emb)
+    return dataclasses.replace(idx, emb=emb_i8, emb_scale=scale)
 
 
 def index_fingerprint(index_path: Path) -> str:

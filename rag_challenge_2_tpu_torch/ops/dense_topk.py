@@ -25,7 +25,7 @@ import torch
 
 from .. import device  # noqa: F401  (full-f32 matmuls for the plain version)
 from ..utils import kernels
-from .topk import NEG_INF
+from .topk import NEG_INF, stable_topk
 
 MAX_K = 64
 MAX_QUERIES = 64
@@ -42,9 +42,10 @@ def dense_topk_plain(
     k_eff = min(k, emb.shape[0])
     s = q.float() @ emb.float().T
     if mask is not None:
-        s = torch.where(mask.bool()[None, :], s, torch.full_like(s, NEG_INF))
-    vals, idx = torch.sort(s, dim=1, descending=True, stable=True)
-    return vals[:, :k_eff].contiguous(), idx[:, :k_eff].to(torch.int32)
+        m = mask.bool() if mask.dim() == 2 else mask.bool()[None, :]
+        s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    vals, idx = stable_topk(s, k_eff)
+    return vals.contiguous(), idx.to(torch.int32)
 
 
 def _lib():

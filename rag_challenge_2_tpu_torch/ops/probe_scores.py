@@ -25,12 +25,10 @@ import torch
 
 from .. import device  # noqa: F401  (full-f32 products for the plain version)
 from ..utils import kernels
+from .quant import i8_dot
 
 _LANES = 128
 ROW_ALIGN = 32
-# largest D for which every partial sum of an int8 x int8 dot stays an
-# integer below 2**24, so an f32 product is exact: 127**2 * 1040 < 2**24
-_I8_EXACT_F32_DIM = 1040
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_SHARED_BYTES = 48 * 1024
 
@@ -47,13 +45,12 @@ def probe_span_scores_plain(
     window: int,
 ) -> torch.Tensor:
     """The plain PyTorch version of K4: gather the clamped spans, then one
-    batched product.  int8 codes multiply as f32, which is exact while
-    D <= 1040 (CUDA has no integer matmul); wider rows sum in int64."""
+    batched product (exact for int8 codes, ``ops/quant.i8_dot``)."""
     offs = torch.arange(window, dtype=torch.int64, device=starts.device)
     pos = (starts.long()[:, None] + offs).clamp(0, emb_perm.shape[0] - 1)
     rows = emb_perm[pos]                                   # [G, W, D]
-    if emb_perm.dtype == torch.int8 and q.shape[1] > _I8_EXACT_F32_DIM:
-        return (rows.long() * q.long()[:, None, :]).sum(-1).float()
+    if emb_perm.dtype == torch.int8:
+        return i8_dot(q[:, None, :], rows)[:, 0, :]
     return torch.bmm(rows.float(), q.float()[:, :, None])[..., 0]
 
 

@@ -2,16 +2,21 @@
 
 Port of ``rag_challenge_2_tpu/retrieval/engine.py`` for ``method="basic"``
 with or without BM25 fusion.  One request fans out over (query, routed
-document) pairs; dense candidates come from kernel K1 per routed document
-slot, or with ``use_ivf`` from one IVF probe search over all pairs
+document) pairs; dense candidates come per routed document slot from
+``ops.topk.dense_topk`` (kernel K1 for f32 / bf16 stores and up to 64
+queries, kernel K3 for int8 stores and larger batches), or with
+``use_ivf`` from one IVF probe search over all pairs
 (``index.ivf.ivf_search``: kernels K4 and K2), BM25 candidates from
-``ops.bm25.bm25_topk`` (kernel K2 in front), and
-``ops.aggregate.fuse_hits`` applies the reference's bonuses.
+``ops.bm25.bm25_topk`` (kernel K2 in front), and ``ops.aggregate.fuse_hits``
+applies the reference's bonuses.  ``search_many`` stacks the queries of R
+requests that share a route, so each routed slot of the store is read
+once per micro-batch, and fuses per request.
 
 Queries are padded to ``max_queries`` and routed documents to
 ``max_docs`` like the reference, so the fused hit lists keep its shapes;
 unrouted slots are skipped on the host (no device round-trip: the engine
-keeps host copies of the routing columns).
+keeps host copies of the routing columns).  ``scan_rt`` is accepted and
+the scan stays exact (``ops/topk.py``).
 """
 
 from __future__ import annotations
@@ -70,9 +75,6 @@ def _check_supported(cfg: SearchConfig) -> None:
         raise NotImplementedError(f"method={cfg.method!r}: {_NOT_PORTED[cfg.method]}")
     if cfg.method != "basic":
         raise ValueError(f"unknown method {cfg.method!r}")
-    if cfg.scan_rt is not None:
-        raise NotImplementedError(
-            "scan_rt: approximate top-k is not ported yet (ROADMAP A.11)")
 
 
 def _bm25_texts(query_texts, question: str, max_q: int) -> List[str]:
@@ -105,8 +107,8 @@ Block = Tuple[torch.Tensor, ...]     # (rows, sims, qids, mids, valid)
 @torch.inference_mode()
 def dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
                window: int = 0) -> Block:
-    """Per-(query, doc) dense top-k through kernel K1, ``[Q*M, k]`` with
-    p = q*M + m.
+    """Per-(query, doc) dense top-k (kernel K1, or K3 for an int8 store or
+    more than 64 queries), ``[Q*M, k]`` with p = q*M + m.
 
     Windowed corpora (``window > 0``: docs are contiguous row ranges)
     score each routed slot's rows ``emb[start : start + len]`` alone, so
@@ -122,6 +124,7 @@ def dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
     vals = torch.full((Q, M, k), NEG_INF, dtype=torch.float32, device=dev)
     rows = torch.zeros((Q, M, k), dtype=torch.int32, device=dev)
     windowed = window > 0 and window >= k and M * window <= 2 * N
+    scale = index.emb_scale                  # [N] f32 iff the store is int8
     for m in range(M):
         if not req.doc_valid[m]:
             continue
@@ -129,10 +132,12 @@ def dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
             ws, wl = int(req.win_start[m]), int(req.win_len[m])
             if wl == 0:
                 continue
-            v, r = dense_topk(q, index.emb[ws : ws + wl], k)
+            v, r = dense_topk(q, index.emb[ws : ws + wl], k, row_scale=None
+                              if scale is None else scale[ws : ws + wl])
             r = r + ws
         else:
-            v, r = dense_topk(q, index.emb, k, mask=req.doc_masks[m])
+            v, r = dense_topk(q, index.emb, k, mask=req.doc_masks[m],
+                              row_scale=scale)
         vals[:, m, : v.shape[1]] = v
         rows[:, m, : r.shape[1]] = r
     vals = torch.where(req.q_valid[:, None, None], vals,
@@ -263,6 +268,42 @@ def search_device(
     if cfg.use_bm25 and req.q_terms is not None and index.sparse is not None:
         blocks.append(bm25_hits(index, req, cfg, window))
     return fuse_blocks(index, blocks, cfg), {}
+
+
+def search_many_device(
+    index: CorpusIndex, reqs: Sequence[Request], cfg: SearchConfig,
+    window: int = 0, ivf: Optional[IVFIndex] = None,
+) -> List[FusedCandidates]:
+    """R requests that share one route (the routing fields of ``reqs[0]``)
+    in one pass.  Their padded queries are stacked ``[R*Q, D]``, so each
+    routed slot of the store is read once for all of them (kernel K3 once
+    ``R*Q`` exceeds K1's 64 queries); fusion stays per request, so the
+    hit-count and method-diversity bonuses never mix across requests.
+    The results equal R :func:`search_device` calls."""
+    _check_supported(cfg)
+    if cfg.use_ivf and ivf is None:
+        raise ValueError("SearchConfig.use_ivf requires an IVFIndex "
+                         "(QueryEngine.build_ivf() first)")
+    Q = reqs[0].q.shape[0]
+    M = reqs[0].doc_masks.shape[0]
+    terms = [r.q_terms for r in reqs]
+    big = dataclasses.replace(
+        reqs[0], q=torch.cat([r.q for r in reqs]),
+        q_valid=torch.cat([r.q_valid for r in reqs]),
+        q_terms=None if any(t is None for t in terms) else torch.cat(terms))
+    if cfg.use_ivf:
+        blocks = [ivf_hits(index, ivf, big, cfg, window)]
+    else:
+        blocks = [dense_hits(index, big, cfg, window)]
+    if cfg.use_bm25 and big.q_terms is not None and index.sparse is not None:
+        blocks.append(bm25_hits(index, big, cfg, window))
+    out = []
+    for r in range(len(reqs)):
+        sl = slice(r * Q * M, (r + 1) * Q * M)     # pairs p = (r*Q + q)*M + m
+        out.append(fuse_blocks(index, [
+            (rows[sl], sims[sl], qids[sl] - r * Q, mids[sl], ok[sl])
+            for rows, sims, qids, mids, ok in blocks], cfg))
+    return out
 
 
 class QueryEngine:
@@ -485,10 +526,44 @@ class QueryEngine:
                                        ivf=self.ivf if cfg.use_ivf else None)
         return (cands, details) if with_details else cands
 
-    def search_many(self, *args, **kwargs):
-        raise NotImplementedError(
-            "search_many (micro-batched requests) is not ported yet "
-            "(ROADMAP A.9)")
+    def search_many(
+        self,
+        query_embs_list: Sequence,
+        company: Optional[str],
+        question: str = "",
+        selected_years: Optional[Sequence[int]] = None,
+        cfg: SearchConfig = SearchConfig(),
+        query_texts_list: Optional[Sequence[Optional[Sequence[str]]]] = None,
+    ) -> List[FusedCandidates]:
+        """R requests sharing one (company, years) route in one pass of
+        :func:`search_many_device`; one ``FusedCandidates`` per request,
+        equal to R :meth:`search` calls.  The JAX engine pads the request
+        axis to a power of two to bound its jit shapes; eager PyTorch
+        compiles nothing per shape, so exactly R requests are stacked."""
+        doc_ids = self.routed_docs(company, question, selected_years)
+        if not doc_ids:
+            raise ValueError(f"No report found with '{company}' company name.")
+        R = len(query_embs_list)
+        if R == 0:
+            return []
+        dm, dv, row_slot, ws, wl, sd = self.doc_masks(doc_ids, cfg.max_docs)
+        max_q = cfg.max_queries
+        with_terms = cfg.use_bm25 and self.index.sparse is not None
+        reqs = []
+        for r in range(R):
+            q, qv = self._pad_request(query_embs_list[r], max_q)
+            q_terms = None
+            if with_terms:
+                from ..ops.bm25 import encode_queries_host
+
+                qt = (query_texts_list[r] if query_texts_list is not None
+                      and r < len(query_texts_list) else None)
+                q_terms = torch.from_numpy(encode_queries_host(
+                    _bm25_texts(qt, question, max_q),
+                    vocab_bits=self.index.sparse.vocab_bits)).to(self.device)
+            reqs.append(Request(q, qv, dm, dv, q_terms, row_slot, ws, wl, sd))
+        return search_many_device(self.index, reqs, cfg, self.window,
+                                  ivf=self.ivf if cfg.use_ivf else None)
 
     # -- materialisation -------------------------------------------------
     def materialize(

@@ -21,8 +21,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -72,6 +73,15 @@ def _build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build_all(names: Optional[Sequence[str]] = None) -> None:
+    """Build every ``csrc/*.cu`` (or ``names``) at once: one ``nvcc`` per
+    source, all started together, so the wall time is the slowest build's.
+    :func:`load_library` then finds the libraries built."""
+    names = list(names or sorted(p.stem for p in CSRC.glob("*.cu")))
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_build, names))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -1,11 +1,14 @@
-"""The command line's IVF option on the CPU: ``query --use-ivf`` writes the
+"""The command line's options on the CPU: ``query --use-ivf`` writes the
 ``<index>.ivf.npz`` sidecar, reuses it while the index file is unchanged,
-and rebuilds it when the index file's fingerprint changes."""
+and rebuilds it when the index file's fingerprint changes;
+``--quantize-int8`` serves from the int8 variant of the index and
+``--scan-rt`` is accepted."""
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from rag_challenge_2_tpu_torch import cli
 from rag_challenge_2_tpu_torch.index import build_corpus_index, save_index
@@ -61,3 +64,27 @@ def test_query_use_ivf_writes_reuses_and_rebuilds_the_sidecar(
     assert load_ivf(sidecar, expect_fingerprint=index_fingerprint(saved_index),
                     device="cpu") is not None
     assert load_ivf(sidecar, expect_fingerprint=fp, device="cpu") is None
+
+
+def test_query_quantize_int8_and_scan_rt(saved_index, monkeypatch, capsys):
+    from rag_challenge_2_tpu_torch.index import store
+
+    seen = []
+    real = store.quantize_index
+
+    def spying(idx):
+        out = real(idx)
+        seen.append(out.emb.dtype)
+        return out
+
+    monkeypatch.setattr(store, "quantize_index", spying)
+    _query(saved_index, "--use-bm25")
+    f32 = capsys.readouterr().out.splitlines()
+    _query(saved_index, "--use-bm25", "--quantize-int8", "--scan-rt", "0.95")
+    i8 = capsys.readouterr().out.splitlines()
+    assert seen == [torch.int8] and len(i8) == len(f32) == 3
+    # int8 scores sit within the quantization error of the f32 ones
+    for a, b in zip(f32, i8):
+        assert abs(float(a[1:7]) - float(b[1:7])) < 0.02
+    _query(saved_index, "--quantize-int8", "--use-ivf")   # the IVF dequantizes for k-means
+    assert len(capsys.readouterr().out.splitlines()) == 3

@@ -264,7 +264,7 @@ def test_probe_span_scores_plain_matches_jax_kernel(rng):
 
 def test_probe_span_scores_plain_clamps_and_wide_int8(rng):
     """Spans running off either end read the clamped row, like the
-    reference's XLA path; int8 rows wider than 1040 sum in int64."""
+    reference's XLA path; int8 rows wider than 1040 stay exact."""
     for N, D in ((300, 40), (50, 1100)):
         emb = rng.integers(-127, 128, size=(N, D)).astype(np.int8)
         q = rng.integers(-127, 128, size=(3, D)).astype(np.int8)

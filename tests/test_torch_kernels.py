@@ -248,3 +248,173 @@ def test_ivf_search_on_the_card_equals_cpu(dev, dtype, mode):
     ref = gather_posting_spans_plain(gpu.row_ids, arr, starts, window=gpu.max_list)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+# ---- K3: the streaming scan with a carried top-k -------------------------
+
+K3_MODES = ["f32", "bf16", "int8", "int8_2pass", "resid", "resid_2pass"]
+
+
+def _k3_args(mode, B, N, D, g, dev, n_codes=40):
+    """Stream-scan operands on the card for one of K3's forms: unit rows
+    (clustered, so near ties occur), and the kwargs of ``stream_topk``."""
+    from rag_challenge_2_tpu_torch.ops.quant import (
+        quantize_query_2pass, quantize_rows, quantize_rows_residual)
+
+    cent = torch.randn(n_codes, D, generator=g)
+    cent = cent / cent.norm(dim=1, keepdim=True)
+    x = cent[torch.randint(0, n_codes, (N,), generator=g)] + 0.3 * torch.randn(N, D, generator=g)
+    x = x / x.norm(dim=1, keepdim=True)
+    q = x[torch.randint(0, N, (B,), generator=g)] + 0.05 * torch.randn(B, D, generator=g)
+    q = q / q.norm(dim=1, keepdim=True)
+    if mode in ("f32", "bf16"):
+        emb = x if mode == "f32" else x.to(torch.bfloat16)
+        return q.to(dev), emb.to(dev), {}
+    if mode.startswith("resid"):
+        emb, rs, assign = quantize_rows_residual(x, cent)
+        kw = dict(row_scale=rs, assign=assign, qc=(q @ cent.T).contiguous())
+    else:
+        emb, rs = quantize_rows(x)
+        kw = dict(row_scale=rs)
+    if mode.endswith("2pass"):
+        q8, s_hi, s_lo = quantize_query_2pass(q)
+        kw.update(q_scale=s_hi, q_scale_lo=s_lo)
+    else:
+        q8, kw["q_scale"] = quantize_rows(q)
+    return q8.to(dev), emb.to(dev), {n: t.to(dev) for n, t in kw.items()}
+
+
+def _k3_check(mode, got, ref):
+    """int8 forms: bitwise equal values and rows; f32 / bf16: values within
+    1e-4, rows equal where untied."""
+    (kv, ki), (pv, pi) = got, ref
+    assert kv.shape == pv.shape and ki.dtype == torch.int32
+    if mode.startswith(("int8", "resid")):
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    else:
+        _untied_rows_equal(kv, ki, pv, pi)
+
+
+@pytest.mark.parametrize("mode", K3_MODES)
+@pytest.mark.parametrize("B,N,D,k", [
+    (127, 20_000, 1024, 30),         # the 10M scan's batch, at a small N
+    (1, 3000, 1024, 10), (64, 5000, 256, 64), (65, 4097, 128, 48),
+    (128, 1000, 96, 1),
+    (5, 777, 100, 7),                # D = 100: int8 / bf16 rows take the element path
+])
+def test_k3_matches_plain(dev, mode, B, N, D, k):
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    g = torch.Generator(device="cpu").manual_seed(B + N + D + k)
+    q, emb, kw = _k3_args(mode, B, N, D, g, dev)
+    mask = (torch.rand(N, generator=g) > 0.2).to(dev)
+    before = stream_topk.launches
+    got = stream_topk(q, emb, k, mask, **kw)
+    ref = stream_topk_plain(q, emb, k, mask, **kw)
+    torch.cuda.synchronize()
+    assert stream_topk.launches == before + 1
+    _k3_check(mode, got, ref)
+    got = stream_topk(q, emb, k, **kw)                  # no mask
+    _k3_check(mode, got, stream_topk_plain(q, emb, k, **kw))
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8_2pass"])
+def test_k3_overflow_all_masked_and_ties(dev, mode):
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q, emb, kw = _k3_args(mode, 9, 3000, 64, g, dev)
+    few = torch.zeros(3000, dtype=torch.bool, device=dev)
+    few[torch.tensor([5, 64, 2999], device=dev)] = True   # 3 eligible rows, k = 10
+    kv, ki = stream_topk(q, emb, 10, few, **kw)
+    _k3_check(mode, (kv, ki), stream_topk_plain(q, emb, 10, few, **kw))
+    assert (ki[:, 3:] == -1).all() and (kv[:, 3:] == -3.0e38).all()
+    assert set(ki[0, :3].tolist()) == {5, 64, 2999}
+    kv, ki = stream_topk(q, emb, 10, torch.zeros_like(few), **kw)
+    assert (ki == -1).all() and (kv == -3.0e38).all()
+    if mode == "f32":                                      # every row three times
+        emb3 = emb[:700].repeat(3, 1).contiguous()
+        kv, ki = stream_topk(q, emb3, 30)
+        pv, pi = stream_topk_plain(q, emb3, 30)
+        assert torch.equal(ki, pi)
+        same = kv[:, 1:] == kv[:, :-1]
+        assert bool(same.any()) and bool((ki[:, 1:][same] > ki[:, :-1][same]).all())
+
+
+def test_k3_rejects_what_it_does_not_take(dev):
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+
+    q = torch.zeros(2, 8, device=dev)
+    emb = torch.zeros(100, 8, device=dev)
+    with pytest.raises(ValueError, match="mask"):
+        stream_topk(q, emb, 2, torch.ones(2, 100, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="queries"):
+        stream_topk(torch.zeros(129, 8, device=dev), emb, 2)
+    with pytest.raises(ValueError, match="k <="):
+        stream_topk(q, emb, 65)
+    with pytest.raises(ValueError):
+        stream_topk(q, emb.half(), 2)
+    with pytest.raises(ValueError):                       # int8 store, no scales
+        stream_topk(q.to(torch.int8), emb.to(torch.int8), 2)
+    with pytest.raises(ValueError):                       # int8 rows wider than 1040
+        stream_topk(torch.zeros(2, 1088, dtype=torch.int8, device=dev),
+                    torch.zeros(10, 1088, dtype=torch.int8, device=dev), 2,
+                    q_scale=torch.ones(2, device=dev), row_scale=torch.ones(10, device=dev))
+
+
+def test_k3_on_the_scan_functions_equals_cpu(dev):
+    """blocked_topk, int8_topk and the residual family on the card (K3)
+    against the same calls on the CPU (plain versions)."""
+    from rag_challenge_2_tpu_torch.ops import quant, topk
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    N, D, B = 9000, 256, 130                                # B > 128: two K3 calls
+    cent = torch.randn(32, D, generator=g)
+    x = cent[torch.randint(0, 32, (N,), generator=g)] + 0.5 * torch.randn(N, D, generator=g)
+    x = x / x.norm(dim=1, keepdim=True)
+    q = x[:B] + 0.1 * torch.randn(B, D, generator=g)
+    mask = torch.rand(N, generator=g) > 0.5
+    e8, rs = quant.quantize_rows(x)
+    r8, rrs, ra = quant.quantize_rows_residual(x, cent)
+    calls = {
+        "blocked_f32": lambda d, m: topk.blocked_topk(q.to(d), x.to(d), 20, mask=m),
+        "dense_b130": lambda d, m: topk.dense_topk(q.to(d), x.to(d), 20, mask=m),
+        "int8_topk": lambda d, m: quant.int8_topk(q.to(d), e8.to(d), rs.to(d), 20, m),
+        "resid": lambda d, m: quant.int8_residual_topk(
+            q.to(d), r8.to(d), rrs.to(d), ra.to(d), cent.to(d), 20, m),
+        "rescored": lambda d, m: quant.int8_residual_topk_rescored(
+            q.to(d), r8.to(d), rrs.to(d), ra.to(d), cent.to(d), 10, k_cand=48, mask=m),
+    }
+    for name, fn in calls.items():
+        before = stream_topk.launches
+        gv, gi = fn(dev, mask.to(dev))
+        cv, ci = fn("cpu", mask)
+        torch.cuda.synchronize()
+        assert stream_topk.launches == before + 2, name
+        _untied_rows_equal(gv.cpu(), gi.cpu(), cv, ci)
+
+
+def test_wide_int8_plain_products_on_the_card(dev):
+    """int8 rows wider than K3 takes (D > 1040) still score exactly on
+    the card in the plain functions (f64 products: CUDA has no integer
+    matmul), equal to the CPU."""
+    from rag_challenge_2_tpu_torch.ops import quant
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk_plain
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    a = torch.randint(-127, 128, (5, 1100), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (300, 1100), generator=g, dtype=torch.int8)
+    a[0], b[0] = 127, 127                                   # the largest sum
+    want = (a.long() @ b.long().T).float()
+    assert torch.equal(quant.i8_dot(a.to(dev), b.to(dev)).cpu(), want)
+    x = torch.randn(300, 1100, generator=g)
+    q = torch.randn(5, 1100, generator=g)
+    e8, rs = quant.quantize_rows(x)
+    got = quant.int8_scores(q.to(dev), e8.to(dev), rs.to(dev)).cpu()
+    assert torch.equal(got, quant.int8_scores(q, e8, rs))
+    q8, qs = quant.quantize_rows(q)
+    gv, gi = stream_topk_plain(q8.to(dev), e8.to(dev), 7, q_scale=qs.to(dev),
+                               row_scale=rs.to(dev))
+    cv, ci = stream_topk_plain(q8, e8, 7, q_scale=qs, row_scale=rs)
+    assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu().long(), ci.long())

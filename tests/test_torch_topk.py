@@ -98,12 +98,6 @@ def test_bf16_store_with_f32_queries(rng):
     assert_same_topk(tv, ti, xv, xi)
 
 
-def test_int8_store_is_not_ported():
-    q = torch.zeros((1, 8))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        dense_topk(q, torch.zeros((4, 8), dtype=torch.int8), 2)
-
-
 def test_wrapper_never_falls_back_off_the_cpu():
     """Only a CPU tensor takes the plain version; any other device launches
     the kernel or raises."""

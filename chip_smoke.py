@@ -33,16 +33,22 @@ without printing a result:
    5's 1M store (f32 / bf16 within 1e-4, rows equal to phase 5's K1
    oracle where untied) and at edge cases; 10M x 1024 rows made on the
    card into a plain int8 and a centroid-residual store, K3 bitwise equal
-   to plain there; recall@10 against the f32 oracle and queries/s of
+   to plain there in its large regime, and in the residual forms on one
+   hybrid slot's rows at B = 4 / 8 / 9 (small and large regimes); every K3
+   time beside its bound; recall@10 against the f32 oracle and queries/s of
    ``int8_topk``, ``approx_topk``, the 2-pass residual scan and the
    rescored scan (gates: plain >= 0.89, rescored >= 0.94 and above
    plain); the engine's int8 arm on phase 3's corpus against the CPU
    engine, ``search_many`` of 16 requests against the CPU engine's and
    against 16 ``search`` calls, and the hybrid at 10M with ``scan_rt`` None
-   and 0.95, K3 on each of its routed slots bitwise equal to plain.
-   Then K3's time on one slot against the batch size, the hybrid's
-   per-stage split, and the device's busy share over one window of calls
-   (``torch.profiler``).
+   and 0.95, K3 on each of its routed slots bitwise equal to plain and in
+   its small regime (per-regime launch counts).  Then K3's time on one
+   slot against the batch size (B = 1 to 128, and 2-pass at 4 / 8 / 9),
+   each beside its bound, the hybrid's per-stage split, and the device's
+   busy share over one window of calls (``torch.profiler``).
+   Each kernel's line also carries its bound (bytes over 3.35 TB/s or
+   operations over the card's peak, the larger) and a library yardstick
+   (a PyTorch composition computing the same function, timed here only).
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Weights are random from ``--seed`` unless a
@@ -63,6 +69,11 @@ ROOT = Path(__file__).resolve().parent
 COMPANY = "金盘科技"
 YEARS = range(2020, 2026)
 K1_TOL = 1e-4
+# the H100 SXM's published peaks (dense): HBM bytes/s, int8 tensor-core
+# operations/s, f32 operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+F32_OPS_S = 67e12
 
 
 class SmokeError(AssertionError):
@@ -99,6 +110,35 @@ def cuda_ms(fn, flush, reps=25, warmup=3):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def bound(nbytes, ops, peak):
+    """The least time for the work, ``(ms, "bytes" or "operations")``: the
+    bytes over the HBM rate or the operations over the peak, the larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k3_bound(N, D, elt, code_rows, B, k, peak, row_arrays=1):
+    """K3's bound: the store and its per-row arrays read once, the codes
+    read once, B x k results written; 2 x code_rows x N x D operations."""
+    nbytes = N * D * elt + 4 * N * row_arrays + code_rows * D * elt + 8 * B * k
+    return bound(nbytes, 2 * code_rows * N * D, peak)
+
+
+def share(ms, bnd):
+    return f"{ms:.3f} ms = {100 * bnd[0] / ms:.1f}% of its {bnd[0]:.3f} ms bound ({bnd[1]})"
+
+
+def library_time(name, fn, flush, **kw):
+    """``cuda_ms`` of a PyTorch composition timed beside a kernel as its
+    yardstick (the port never calls it); None, with the reason logged,
+    where this PyTorch build refuses the composition."""
+    try:
+        return cuda_ms(fn, flush, **kw)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"{name} library yardstick not timed: {str(e).splitlines()[0][:120]}")
+        return None
 
 
 def wall(fn, dev):
@@ -182,11 +222,18 @@ def phase2_kernels(dev, flush, gen, csr):
             k1_err = max(k1_err, err)
             ms = cuda_ms(lambda: dense_topk_fused(q, emb, k), flush)
             pms = cuda_ms(lambda: dense_topk_plain(q, emb, k), flush)
+            # yardstick: one matmul in the store's type, then torch.topk
+            lib = library_time("K1", lambda: torch.topk(
+                torch.matmul(q.to(dt), emb.T).float(), k, dim=1), flush)
+            bnd = bound(N * D * emb.element_size() + B * D * 4 + 8 * B * k,
+                        2 * B * N * D, F32_OPS_S)
             gbs = N * D * emb.element_size() / ms / 1e6
             out["k1"].append(dict(N=N, dtype=str(dt).split(".")[1], err=err,
-                                  ms=ms, plain_ms=pms, gb_s=gbs))
+                                  ms=ms, plain_ms=pms, gb_s=gbs, bound_ms=bnd[0],
+                                  bound_by=bnd[1], library_ms=lib))
             log(f"K1 B={B} N={N} D={D} k={k} {dt}: max|diff| {err:.3g}  "
-                f"kernel {ms:.4f} ms ({gbs:.0f} GB/s)  plain {pms:.4f} ms")
+                f"kernel {share(ms, bnd)} ({gbs:.0f} GB/s)  plain {pms:.4f} ms  "
+                f"matmul + topk {lib if lib is None else f'{lib:.4f}'} ms")
     # edge cases: each compared with plain, then timed
     N = 10_000                                    # not a multiple of the tile
     cases = {
@@ -228,9 +275,16 @@ def phase2_kernels(dev, flush, gen, csr):
               f"K2 (dl={with_dl}): not bitwise equal to plain")
     ms = cuda_ms(lambda: gather_posting_spans(ids, tf, starts, window=W, dl=dl), flush)
     pms = cuda_ms(lambda: gather_posting_spans_plain(ids, tf, starts, window=W, dl=dl), flush)
-    out["k2"].append(dict(G=8 * 64, W=W, nnz=ids.shape[0], ms=ms, plain_ms=pms))
+    # yardstick: one indexing call per array at the clamped span positions
+    pos = (starts.long()[:, None] + torch.arange(W, device=dev)).clamp(0, ids.shape[0] - 1)
+    lib = library_time("K2", lambda: [a[pos] for a in (ids, tf, dl)], flush)
+    G = starts.shape[0]
+    bnd = bound(2 * G * W * 12 + 4 * G, 0, F32_OPS_S)   # 3 arrays read + written
+    out["k2"].append(dict(G=G, W=W, nnz=ids.shape[0], ms=ms, plain_ms=pms,
+                          bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib))
     log(f"K2 V=2^18 W={W} G=8*64 nnz_pad={ids.shape[0]}: bitwise equal "
-        f"(with and without dl)  kernel {ms:.4f} ms  plain {pms:.4f} ms")
+        f"(with and without dl)  kernel {share(ms, bnd)}  plain {pms:.4f} ms  "
+        f"indexing {lib if lib is None else f'{lib:.4f}'} ms")
     out["k1_err"] = k1_err
     return out
 
@@ -642,7 +696,15 @@ def phase5a_kernels(dev, gen, flush, stores, q, starts, W):
 
     G = starts.shape[0]
     P = G // q.shape[0]
-    out, k4_err = {}, 0.0
+    # the rows the spans touch: spans of W = max_list rows run past their
+    # list into the next ones, and nearby queries probe the same lists, so
+    # the spans overlap; the function needs each distinct row once
+    n_rows = next(iter(stores.values())).emb_perm.shape[0]
+    pos = (starts.long()[:, None] + torch.arange(W, device=dev)).clamp(0, n_rows - 1)
+    touched = torch.unique(pos).numel()
+    log(f"K4 spans G={G} x W={W}: {touched} distinct rows of {G * W} span rows "
+        f"({100 * touched / (G * W):.1f}%)")
+    out, k4_err = {"rows_touched": touched}, 0.0
     for name, iv in stores.items():
         emb = iv.emb_perm
         qs = query_span(q, emb.dtype).repeat_interleave(P, dim=0).contiguous()
@@ -650,10 +712,24 @@ def phase5a_kernels(dev, gen, flush, stores, q, starts, W):
         k4_err = max(k4_err, err)
         ms = cuda_ms(lambda: probe_span_scores(emb, qs, starts, window=W), flush)
         pms = cuda_ms(lambda: probe_span_scores_plain(emb, qs, starts, window=W), flush)
-        gbs = G * W * emb.shape[1] * emb.element_size() / ms / 1e6
-        out[name] = dict(G=G, W=W, err=err, ms=ms, plain_ms=pms, gb_s=gbs)
-        log(f"K4 {name} G={G} W={W} D={emb.shape[1]}: max|diff| {err:.3g}  "
-            f"kernel {ms:.4f} ms ({gbs:.0f} GB/s)  plain {pms:.4f} ms")
+        D = emb.shape[1]
+        # each distinct row the spans touch read once, the queries and
+        # starts read once, the [G, W] scores written; G x W x D products
+        bnd = bound(touched * D * emb.element_size() + G * D * qs.element_size()
+                    + 4 * G + 4 * G * W,
+                    2 * G * W * D, INT8_OPS_S if emb.dtype == torch.int8 else F32_OPS_S)
+        lib = None
+        if emb.dtype == torch.float32:
+            # yardstick: the spans gathered by one index, then torch.bmm
+            lib = library_time("K4", lambda: torch.bmm(emb[pos], qs[:, :, None]), flush,
+                               reps=5)
+        gbs = G * W * D * emb.element_size() / ms / 1e6
+        out[name] = dict(G=G, W=W, err=err, ms=ms, plain_ms=pms, gb_s=gbs,
+                         bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib)
+        log(f"K4 {name} G={G} W={W} D={D}: max|diff| {err:.3g}  kernel {share(ms, bnd)} "
+            f"({gbs:.0f} GB/s)  plain {pms:.4f} ms"
+            + (f"  gather + bmm {lib if lib is None else f'{lib:.4f}'} ms"
+               if emb.dtype == torch.float32 else ""))
         # edge cases on the same store: G = 1, W off the 32/128 grid,
         # spans running past the last row, unaligned starts
         n = emb.shape[0]
@@ -710,10 +786,18 @@ def _wrappers():
 def zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    k3 = _wrappers()["stream_topk"]
+    for r in k3.regime_launches:
+        k3.regime_launches[r] = 0
 
 
 def read_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def k3_regimes():
+    """K3's launches by regime since the last :func:`zero_counts`."""
+    return dict(_wrappers()["stream_topk"].regime_launches)
 
 
 def phase5c_engine(dev, ctx3):
@@ -964,9 +1048,11 @@ def phase6a_1m(dev, flush, ctx5):
         ms = cuda_ms(lambda: stream_topk(q, e, 30), flush, reps=10)
         pms = cuda_ms(lambda: stream_topk_plain(q, e, 30), flush, reps=10)
         name = str(dt).split(".")[1]
-        out[name] = dict(N=N, B=q.shape[0], k=30, err=err, ms=ms, plain_ms=pms)
+        bnd = k3_bound(N, D, e.element_size(), q.shape[0], q.shape[0], 30, F32_OPS_S, 0)
+        out[name] = dict(N=N, B=q.shape[0], k=30, err=err, ms=ms, plain_ms=pms,
+                         bound_ms=bnd[0], bound_by=bnd[1])
         log(f"K3 {name} B={q.shape[0]} N={N} D={D} k=30: max|diff| {err:.3g}  "
-            f"kernel {ms:.3f} ms  plain {pms:.3f} ms")
+            f"kernel {share(ms, bnd)}  plain {pms:.3f} ms")
     log("K3 f32 rows == phase 5's K1 oracle wherever untied")
 
     # edge cases on slices of the same store, f32 and int8
@@ -1071,8 +1157,29 @@ def make_10m(dev, seed, N=10_000_000, D=1024, C=500_000, K_CODE=16_384):
                 rscales=rscales, rassign=rassign, code=code, N=N, D=D)
 
 
+def k3_int8_library(q8, qs, emb, rs, k, flush, block=2_500_000):
+    """K3 int8's yardstick: ``torch._int_mm`` then ``torch.topk`` on the
+    dequantised scores, in row blocks (the full [B, N] int32 product of a
+    10M store would not fit beside it), then a top-k of the blocks'."""
+    import torch
+
+    def run():
+        vals, rows = [], []
+        for s0 in range(0, emb.shape[0], block):
+            acc = torch._int_mm(q8, emb[s0:s0 + block].T)
+            v, i = torch.topk(acc.float() * qs[:, None] * rs[None, s0:s0 + block], k, dim=1)
+            vals.append(v)
+            rows.append(i + s0)
+        v, j = torch.topk(torch.cat(vals, 1), k, dim=1)
+        return v, torch.gather(torch.cat(rows, 1), 1, j)
+
+    return library_time("K3", run, flush, reps=3, warmup=1)
+
+
 def phase6a_10m(dev, flush, data):
-    """K3 against plain at 10M for the int8 forms: bitwise."""
+    """K3 against plain at 10M for the int8 forms: bitwise, in the large
+    regime.  Then K3's residual forms on one hybrid slot's rows by batch,
+    across the small / large boundary, while the residual store exists."""
     from rag_challenge_2_tpu_torch.ops.quant import quantize_query_2pass, quantize_rows
     from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
 
@@ -1089,15 +1196,51 @@ def phase6a_10m(dev, flush, data):
             assign=data["rassign"], qc=qc)),
     }
     out = {}
+    B, D = q.shape[0], data["D"]
     for name, (qq, e, kw) in forms.items():
+        zero_counts()
         compare_k3(f"{name} N={N}", qq, e, 30, exact=True, **kw)
+        check(k3_regimes()["int8_large"] == 1,
+              f"K3 {name} at B={B}: the large regime must run: {k3_regimes()}")
         ms = cuda_ms(lambda: stream_topk(qq, e, 30, **kw), flush, reps=5, warmup=1)
         pms = cuda_ms(lambda: stream_topk_plain(qq, e, 30, **kw), flush, reps=3, warmup=1)
-        ops = 2 * q.shape[0] * N * data["D"] * (2 if "2-pass" in name else 1)
-        out[name] = dict(N=N, B=q.shape[0], k=30, ms=ms, plain_ms=pms,
-                         tops=ops / ms / 1e9)
-        log(f"K3 {name} B={q.shape[0]} N={N} k=30: bitwise equal to plain  "
-            f"kernel {ms:.2f} ms ({ops / ms / 1e9:.1f} int8 TOP/s)  plain {pms:.2f} ms")
+        rows_q = qq.shape[0]
+        ops = 2 * rows_q * N * D
+        bnd = k3_bound(N, D, 1, rows_q, B, 30, INT8_OPS_S, 2 if "residual" in name else 1)
+        out[name] = dict(N=N, B=B, k=30, ms=ms, plain_ms=pms, tops=ops / ms / 1e9,
+                         bound_ms=bnd[0], bound_by=bnd[1])
+        log(f"K3 {name} B={B} N={N} k=30: bitwise equal to plain  kernel {share(ms, bnd)} "
+            f"({ops / ms / 1e9:.1f} int8 TOP/s)  plain {pms:.2f} ms")
+    lib = k3_int8_library(q8, qs, data["buf"], data["scales"], 30, flush)
+    out["int8"]["library_ms"] = lib
+    log(f"K3 int8 yardstick at N={N}: torch._int_mm + torch.topk "
+        f"{lib if lib is None else f'{lib:.2f}'} ms")
+
+    # the residual forms on the rows of one routed slot of the 10M hybrid
+    slot = N // 6
+    e, rs, ra = data["rbuf"][:slot], data["rscales"][:slot], data["rassign"][:slot]
+    by_batch = {}
+    for two in (False, True):
+        for b in (4, 8, 9):
+            qb = q[:b].contiguous()
+            if two:
+                qq, s_hi, s_lo = quantize_query_2pass(qb)
+                kw = dict(q_scale=s_hi, q_scale_lo=s_lo)
+            else:
+                qq, qs_b = quantize_rows(qb)
+                kw = dict(q_scale=qs_b)
+            kw.update(row_scale=rs, assign=ra, qc=(qb @ data["code"].T).contiguous())
+            name = f"residual {'2-pass' if two else '1-pass'} B={b}"
+            zero_counts()
+            compare_k3(f"{name} N={slot}", qq, e, 30, exact=True, **kw)
+            regime = "int8_small" if qq.shape[0] <= 16 else "int8_large"
+            check(k3_regimes()[regime] == 1, f"K3 {name}: {regime} expected: {k3_regimes()}")
+            ms = cuda_ms(lambda: stream_topk(qq, e, 30, **kw), flush, reps=10)
+            bnd = k3_bound(slot, D, 1, qq.shape[0], b, 30, INT8_OPS_S, 2)
+            by_batch[name] = dict(ms=ms, regime=regime, bound_ms=bnd[0])
+            log(f"K3 {name} N={slot} ({regime}): bitwise equal to plain  "
+                f"kernel {share(ms, bnd)}")
+    out["residual_slot_by_batch"] = by_batch
     return out
 
 
@@ -1154,21 +1297,32 @@ def profile_hybrid10m(dev, idx, hreqs, cfg, window, data):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from rag_challenge_2_tpu_torch.ops.quant import quantize_rows
+    from rag_challenge_2_tpu_torch.ops.quant import quantize_query_2pass, quantize_rows
     from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
     from rag_challenge_2_tpu_torch.retrieval.engine import (
         bm25_hits, dense_hits, fuse_blocks, search_device)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     e, r = data["buf"][:window], data["scales"][:window]
+    D = data["D"]
+    q = torch.cat([data["q"], data["q"][:1]])            # 128 queries
     by_batch = {}
-    for B in (1, 4, 8, 32, 64, 127):
-        q8, qs = quantize_rows(data["q"][:B])
-        by_batch[B] = cuda_ms(lambda: stream_topk(q8, e, 30, q_scale=qs, row_scale=r),
-                              flush, reps=10)
+    for two, batches in ((False, (1, 4, 8, 16, 17, 32, 64, 127, 128)), (True, (4, 8, 9))):
+        for B in batches:
+            if two:
+                qq, s_hi, s_lo = quantize_query_2pass(q[:B].contiguous())
+                kw = dict(q_scale=s_hi, q_scale_lo=s_lo)
+            else:
+                qq, qs = quantize_rows(q[:B].contiguous())
+                kw = dict(q_scale=qs)
+            ms = cuda_ms(lambda: stream_topk(qq, e, 30, row_scale=r, **kw), flush, reps=10)
+            bnd = k3_bound(window, D, 1, qq.shape[0], B, 30, INT8_OPS_S)
+            name = f"{'2-pass ' if two else ''}B={B}"
+            by_batch[name] = dict(ms=ms, bound_ms=bnd[0],
+                                  regime="int8_small" if qq.shape[0] <= 16 else "int8_large")
+            log(f"K3 int8 on one slot (N={window}, k=30) {name} ({by_batch[name]['regime']}): "
+                f"{share(ms, bnd)}")
     del flush
-    log(f"K3 int8 on one slot (N={window}, k=30) by batch: "
-        + ", ".join(f"B={b} {ms:.3f} ms" for b, ms in by_batch.items()))
     stages = dict(dense=0.0, bm25=0.0, fuse=0.0)
     for rq in hreqs:
         bd, t1 = wall(lambda: dense_hits(idx, rq, cfg, window), dev)
@@ -1321,8 +1475,12 @@ def phase6c_engine(dev, gen, ctx3, data):
             fused, t = wall(window, dev)
             runs.append(t)
         launches = read_counts()
+        regimes = k3_regimes()
         check(launches["stream_topk"] > 0 and launches["span_gather"] > 0,
               f"hybrid 10M (scan_rt={rt}): K3 or K2 never launched: {launches}")
+        check(regimes["int8_small"] == launches["stream_topk"],
+              f"hybrid 10M (scan_rt={rt}): the Q = {Q_BATCH} slots must run K3's small "
+              f"regime: {regimes}")
         for f in fused:
             keys = f.key[f.key >= 0]
             check(keys.numel() > 0 and bool((keys < 3 * per_doc).all()),
@@ -1330,12 +1488,14 @@ def phase6c_engine(dev, gen, ctx3, data):
             check(bool(torch.isfinite(f.score).all()), "hybrid 10M: non-finite scores")
         t = statistics.median(runs)
         fused_of[rt] = fused
-        out[f"hybrid_10m_rt{rt}"] = dict(launches=launches, qps=Q_BATCH * REPS / t,
+        out[f"hybrid_10m_rt{rt}"] = dict(launches=launches, k3_regimes=regimes,
+                                         qps=Q_BATCH * REPS / t,
                                          window_ms=[r_ * 1e3 for r_ in runs])
         log(f"hybrid 10M int8 (6 docs, 3 routed, {REPS} calls x {Q_BATCH} queries, "
             f"scan_rt={rt}): median of 3 windows {t * 1e3:.2f} ms = "
             f"{Q_BATCH * REPS / t:.1f} queries/s (runs "
-            f"{', '.join(f'{r_ * 1e3:.2f}' for r_ in runs)} ms); launches {launches}")
+            f"{', '.join(f'{r_ * 1e3:.2f}' for r_ in runs)} ms); launches {launches}, "
+            f"K3 by regime {regimes}")
 
     # K3 as dense_hits runs it on each routed slot of one hybrid request:
     # the request's int8 codes against buf[ws : ws + wl] with the slot's
@@ -1348,13 +1508,16 @@ def phase6c_engine(dev, gen, ctx3, data):
     for m in range(3):
         s0, s1 = int(ws[m]), int(ws[m] + wl[m])
         e_m, sc_m = data["buf"][s0:s1], data["scales"][s0:s1]
+        zero_counts()
         _, kv, ki = compare_k3(f"hybrid slot {m} ({s1 - s0} rows)", q8, e_m, 30,
                                exact=True, q_scale=qs, row_scale=sc_m)
+        check(k3_regimes()["int8_small"] == 1,
+              f"hybrid 10M slot {m}: K3 must run its small regime: {k3_regimes()}")
         dv, di = dense_topk(q0, e_m, 30, row_scale=sc_m)
         check(torch.equal(dv, kv) and torch.equal(di.long(), ki.long()),
               f"hybrid 10M slot {m}: dense_topk differs from K3")
     log(f"hybrid 10M: K3 on each routed slot ({int(wl[0])} rows, B={Q_BATCH}, "
-        "emb_scale slice) bitwise equal to plain; dense_topk == K3")
+        "emb_scale slice, small regime) bitwise equal to plain; dense_topk == K3")
     out["hybrid_10m_profile"] = profile_hybrid10m(
         dev, idx, hreqs, dataclasses.replace(c, scan_rt=None), per_doc, data)
     overlap = []
@@ -1453,7 +1616,8 @@ def main(argv=None):
          "source": "rag_challenge_2_tpu_torch/csrc/dense_topk.cu",
          "replaces": "rag_challenge_2_tpu/ops/pallas_topk.py:142",
          "launches": p3["launches"]["dense_topk"], "max_abs_err": k["k1_err"],
-         "ms": big["ms"], "plain_ms": big["plain_ms"]},
+         "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+         "bound_by": big["bound_by"], "library_ms": big["library_ms"]},
         {"name": "span_gather", "route": "cuda",
          "source": "rag_challenge_2_tpu_torch/csrc/span_gather.cu",
          "replaces": "rag_challenge_2_tpu/ops/pallas_bm25.py:94",
@@ -1461,14 +1625,19 @@ def main(argv=None):
          "launches": p3["launches"]["span_gather"]
          + p5["engine"]["win_start"]["launches"]["span_gather"],
          "max_abs_err": 0.0,
-         "ms": k["k2"][0]["ms"], "plain_ms": k["k2"][0]["plain_ms"]},
+         "ms": k["k2"][0]["ms"], "plain_ms": k["k2"][0]["plain_ms"],
+         "bound_ms": k["k2"][0]["bound_ms"], "bound_by": k["k2"][0]["bound_by"],
+         "library_ms": k["k2"][0]["library_ms"]},
         {"name": "probe_scores", "route": "cuda",
          "source": "rag_challenge_2_tpu_torch/csrc/probe_scores.cu",
          "replaces": "rag_challenge_2_tpu/ops/pallas_ivf.py:102",
          "launches": p5["engine"]["win_start"]["launches"]["probe_scores"],
          "max_abs_err": p5["kernels"]["k4_err"],
          "ms": p5["kernels"]["float32"]["ms"],
-         "plain_ms": p5["kernels"]["float32"]["plain_ms"]},
+         "plain_ms": p5["kernels"]["float32"]["plain_ms"],
+         "bound_ms": p5["kernels"]["float32"]["bound_ms"],
+         "bound_by": p5["kernels"]["float32"]["bound_by"],
+         "library_ms": p5["kernels"]["float32"]["library_ms"]},
         {"name": "stream_topk", "route": "cuda",
          "source": "rag_challenge_2_tpu_torch/csrc/stream_topk.cu",
          "replaces": "rag_challenge_2_tpu/ops/pallas_topk_stream.py:145",
@@ -1476,7 +1645,10 @@ def main(argv=None):
          "launches": p6["scans"]["launches"]["stream_topk"]
          + p6["engine"]["hybrid_10m_rtNone"]["launches"]["stream_topk"],
          "max_abs_err": p6["k3_1m"]["err"],
-         "ms": p6["k3_10m"]["int8"]["ms"], "plain_ms": p6["k3_10m"]["int8"]["plain_ms"]},
+         "ms": p6["k3_10m"]["int8"]["ms"], "plain_ms": p6["k3_10m"]["int8"]["plain_ms"],
+         "bound_ms": p6["k3_10m"]["int8"]["bound_ms"],
+         "bound_by": p6["k3_10m"]["int8"]["bound_by"],
+         "library_ms": p6["k3_10m"]["int8"]["library_ms"]},
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

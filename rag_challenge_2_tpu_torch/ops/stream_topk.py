@@ -6,9 +6,15 @@ bounded-memory exact scan ``ops/topk.blocked_topk``: the store is read in
 row tiles, each query's top-k is carried on chip, and a tile is merged
 only when one of its scores beats the current k-th.  The ``[B, N]`` score
 matrix never exists, which is what lets a 10M-row store be scanned.  The
-source note in the ``.cu`` file says what bounds it on the H100 (the
-``__dp4a`` / FMA issue rate at 127 queries, not the store read) and how
-it is laid out.
+source note in the ``.cu`` file says what bounds each form on the H100
+and how it is laid out.  The int8 forms run on the tensor cores
+(``wgmma`` s8) in one of two regimes that :func:`plan` picks from the
+batch: *small* (at most 16 code rows: B <= 16, or B <= 8 in 2-pass; the
+engine's routed slots) keeps the code block resident in shared memory and
+is bound by the store read; *large* (up to 256 code rows) stages the
+query's D-chunks beside 128-row store tiles.  Either reads the store from
+HBM once per call.  The f32 and bf16 forms keep the first design (64-row
+query tiles, IEEE f32 FMA on the CUDA cores).
 
 One wrapper, :func:`stream_topk`, takes every form the scan has:
 
@@ -30,6 +36,7 @@ For a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -42,6 +49,64 @@ from .topk import BLOCK_ROWS, NEG_INF, stable_topk
 MAX_K = 64
 MAX_QUERIES = 128
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# The planner's constants.  The library exports its own values
+# (``rc2_stream_topk_constants``, in this order) and a card test holds
+# the two equal.
+FLOAT_TILE_ROWS = 64        # f32 / bf16: store rows per tile
+FLOAT_QUERY_ROWS = 64       # f32 / bf16: query rows per block
+FLOAT_BLOCKS_PER_SM = 2
+INT8_TILE_ROWS = 128        # int8: store rows per tile (the TMA box)
+SMALL_CODE_ROWS = 16        # int8 small regime: code rows, kept resident
+SMALL_BLOCKS_PER_SM = 2
+LARGE_BLOCKS_PER_SM = 1
+LARGE_QUERY_TILES = (64, 128, 256)   # int8 large regime: code rows per tile
+CAND_CAP = 16               # gated candidates buffered per query
+CONSTANTS = (FLOAT_TILE_ROWS, FLOAT_QUERY_ROWS, FLOAT_BLOCKS_PER_SM,
+             INT8_TILE_ROWS, SMALL_CODE_ROWS, SMALL_BLOCKS_PER_SM,
+             LARGE_BLOCKS_PER_SM, *LARGE_QUERY_TILES, CAND_CAP)
+REGIMES = ("float", "int8_small", "int8_large")
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one K3 call is cut: the regime, the query tile (code rows for
+    int8), the row chunk each block owns, and how often the call reads
+    the store from HBM."""
+    regime: str
+    query_tile: int
+    tile_rows: int
+    rows_per_chunk: int
+    n_chunks: int
+    store_passes: int
+
+
+def plan(B: int, two_pass: bool, int8: bool, N: int, sms: int) -> Plan:
+    """The kernel's grid for B logical queries over N rows on a card of
+    ``sms`` SMs.  int8: the small regime up to 16 code rows (2B in
+    2-pass), else the smallest large query tile that holds them; a
+    persistent grid of one (large) or two (small) blocks per SM, each
+    block a contiguous row chunk for all queries, so one store pass.
+    f32 / bf16: ceil(B / 64) query groups share about two blocks per SM,
+    and each group reads the store."""
+    if int8:
+        rows = 2 * B if two_pass else B
+        if rows <= SMALL_CODE_ROWS:
+            regime, tile_q, blocks = "int8_small", SMALL_CODE_ROWS, SMALL_BLOCKS_PER_SM * sms
+        else:
+            regime = "int8_large"
+            tile_q = min(t for t in LARGE_QUERY_TILES if t >= rows)
+            blocks = LARGE_BLOCKS_PER_SM * sms
+        tile_rows, passes = INT8_TILE_ROWS, 1
+    else:
+        regime, tile_q, tile_rows = "float", FLOAT_QUERY_ROWS, FLOAT_TILE_ROWS
+        passes = -(-B // FLOAT_QUERY_ROWS)
+        blocks = -(-FLOAT_BLOCKS_PER_SM * sms // passes)
+    tiles = -(-N // tile_rows)
+    chunks = max(1, min(tiles, blocks))
+    rows_per_chunk = -(-tiles // chunks) * tile_rows
+    return Plan(regime, tile_q, tile_rows, rows_per_chunk, -(-N // rows_per_chunk),
+                passes)
 
 
 def block_scores(
@@ -110,14 +175,21 @@ def _lib():
     lib = kernels.load_library("stream_topk")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rc2_stream_topk.restype = I
-    lib.rc2_stream_topk.argtypes = [P, P, I, I, P, P, P, P, P, I, P, I, I, I, I,
+    lib.rc2_stream_topk.argtypes = [P, P, I, I, P, P, P, P, P, P, I, I, I, I, I,
                                     I, I, P, P, P, P, P]
-    for fn in ("rc2_stream_topk_tile_rows", "rc2_stream_topk_query_rows"):
-        getattr(lib, fn).restype = I
-        getattr(lib, fn).argtypes = []
+    lib.rc2_stream_topk_constants.restype = I
+    lib.rc2_stream_topk_constants.argtypes = [P, I]
     lib.rc2_stream_topk_scratch_chunks.restype = I
     lib.rc2_stream_topk_scratch_chunks.argtypes = [I]
     return lib
+
+
+def library_constants() -> Tuple[int, ...]:
+    """The library's own planner constants, in the order of
+    :data:`CONSTANTS` (builds the library)."""
+    buf = (ctypes.c_int * 32)()
+    n = _lib().rc2_stream_topk_constants(ctypes.cast(buf, ctypes.c_void_p), 32)
+    return tuple(buf[:n])
 
 
 def _check_cuda_args(q, emb, k, mask, q_scale, q_scale_lo, row_scale, assign,
@@ -180,18 +252,6 @@ def _check_cuda_args(q, emb, k, mask, q_scale, q_scale_lo, row_scale, assign,
     return B
 
 
-def _plan(lib, B: int, two_pass: bool, N: int, dev) -> Tuple[int, int]:
-    """``(rows_per_chunk, n_chunks)``: about two blocks per SM in all."""
-    rows = lib.rc2_stream_topk_tile_rows()
-    lq = lib.rc2_stream_topk_query_rows() // (2 if two_pass else 1)
-    groups = -(-B // lq)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-N // rows)
-    chunks = max(1, min(tiles, -(-2 * sms // groups)))
-    rows_per_chunk = -(-tiles // chunks) * rows
-    return rows_per_chunk, -(-N // rows_per_chunk)
-
-
 def stream_topk(
     q: torch.Tensor, emb: torch.Tensor, k: int,
     mask: Optional[torch.Tensor] = None, *,
@@ -234,30 +294,36 @@ def stream_topk(
     mode = 0 if emb.dtype != torch.int8 else (2 if two_pass else 1)
     lib = _lib()
     dev = q.device
-    rows_per_chunk, n_chunks = _plan(lib, B, two_pass, N, dev)
-    scratch = B * lib.rc2_stream_topk_scratch_chunks(n_chunks) * k_eff
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pl = plan(B, two_pass, mode != 0, N, sms)
+    scratch = B * lib.rc2_stream_topk_scratch_chunks(pl.n_chunks) * k_eff
     cand_v = torch.empty(scratch, dtype=torch.float32, device=dev)
     cand_i = torch.empty(scratch, dtype=torch.int32, device=dev)
     out_v = torch.empty((B, k_eff), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k_eff), dtype=torch.int32, device=dev)
+    # the residual bias as [n_codes, B]: the four lanes that hold one row's
+    # neighbouring queries then read one sector
+    qc_t = None if qc is None else qc.t().contiguous()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = lib.rc2_stream_topk(
         q.data_ptr(), emb.data_ptr(), _KINDS[emb.dtype], mode, ptr(q_scale),
-        ptr(q_scale_lo), ptr(row_scale), ptr(assign), ptr(qc),
-        0 if qc is None else qc.shape[1], ptr(mask), B, N, D, k_eff,
-        rows_per_chunk, n_chunks, cand_v.data_ptr(), cand_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(),
+        ptr(q_scale_lo), ptr(row_scale), ptr(assign), ptr(qc_t), ptr(mask), B, N, D,
+        k_eff, pl.query_tile, pl.rows_per_chunk, pl.n_chunks, cand_v.data_ptr(),
+        cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check_launch(lib, rc, "stream_topk")
     stream_topk.launches += 1
+    stream_topk.regime_launches[pl.regime] += 1
     return out_v, out_i
 
 
 stream_topk.launches = 0
+# launches by regime ("float", "int8_small", "int8_large")
+stream_topk.regime_launches = dict.fromkeys(REGIMES, 0)
 
 
 def stream_dense_topk(

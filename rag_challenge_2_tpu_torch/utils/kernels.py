@@ -31,6 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-lcuda",  # the driver API: cuTensorMapEncodeTiled for TMA tensor maps
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}

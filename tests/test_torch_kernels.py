@@ -418,3 +418,100 @@ def test_wide_int8_plain_products_on_the_card(dev):
                                row_scale=rs.to(dev))
     cv, ci = stream_topk_plain(q8, e8, 7, q_scale=qs, row_scale=rs)
     assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu().long(), ci.long())
+
+
+# ---- K3's int8 regimes (tensor-core products, one store pass) -------------
+
+K3_INT8_MODES = ["int8", "int8_2pass", "resid", "resid_2pass"]
+
+
+def _k3_int8_call(mode, B, N, D, k, g, dev, mask=None, store=None):
+    """K3 and its plain version on one int8 form (``store`` may rewrite the
+    store and its row arrays); both results bitwise equal, and the regime
+    the planner picked for this batch ran."""
+    from rag_challenge_2_tpu_torch.ops.stream_topk import (
+        SMALL_CODE_ROWS, stream_topk, stream_topk_plain)
+
+    q, e, kw = _k3_args(mode, B, N, D, g, dev)
+    if store is not None:
+        e, kw = store(e, kw)
+    rows = 2 * B if mode.endswith("2pass") else B
+    regime = "int8_small" if rows <= SMALL_CODE_ROWS else "int8_large"
+    before = dict(stream_topk.regime_launches)
+    got = stream_topk(q, e, k, mask, **kw)
+    ref = stream_topk_plain(q, e, k, mask, **kw)
+    torch.cuda.synchronize()
+    assert stream_topk.regime_launches[regime] == before[regime] + 1
+    _k3_check(mode, got, ref)
+    return got
+
+
+@pytest.mark.parametrize("mode", K3_INT8_MODES)
+@pytest.mark.parametrize("B", [1, 8, 9, 16, 17, 127, 128])
+def test_k3_int8_regime_boundaries(dev, mode, B):
+    """Either side of the small regime's 16 code rows (B = 8 / 9 in 2-pass,
+    16 / 17 in 1-pass) and the large tiles' edges; N not a multiple of the
+    128-row tile."""
+    g = torch.Generator(device="cpu").manual_seed(100 + B)
+    mask = (torch.rand(5000, generator=g) > 0.2).to(dev)
+    _k3_int8_call(mode, B, 5000, 256, 30, g, dev, mask)
+
+
+@pytest.mark.parametrize("mode", K3_INT8_MODES)
+@pytest.mark.parametrize("B", [4, 40])
+@pytest.mark.parametrize("D", [32, 96, 1000, 1040])
+def test_k3_int8_widths(dev, mode, B, D):
+    """D below one 128-byte chunk, ragged last chunks, D = 1000 (rows not
+    16-byte aligned: loaded by the threads) and the widest int8 row."""
+    g = torch.Generator(device="cpu").manual_seed(D + B)
+    _k3_int8_call(mode, B, 1500, D, 20, g, dev)
+
+
+@pytest.mark.parametrize("mode", ["int8", "resid_2pass"])
+@pytest.mark.parametrize("B", [3, 33])
+@pytest.mark.parametrize("N,k", [(1, 1), (1, 64), (100, 64), (100, 1),
+                                 (128 * 9 + 5, 64), (128 * 9 + 5, 1)])
+def test_k3_int8_short_and_ragged_stores(dev, mode, B, N, k):
+    """N smaller than one tile and N not a multiple of it, at k = 1 and 64."""
+    g = torch.Generator(device="cpu").manual_seed(N * 7 + k + B)
+    kv, ki = _k3_int8_call(mode, B, N, 64, k, g, dev)
+    assert kv.shape == (B, min(k, N))
+
+
+@pytest.mark.parametrize("mode", K3_INT8_MODES)
+@pytest.mark.parametrize("B", [5, 40])
+def test_k3_int8_masks_ties_and_misaligned_view(dev, mode, B):
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+
+    g = torch.Generator(device="cpu").manual_seed(B + len(mode))
+    N, D = 2001, 64
+    kv, ki = _k3_int8_call(mode, B, N, D, 30, g, dev,
+                           mask=torch.zeros(N, dtype=torch.bool, device=dev))
+    assert (ki == -1).all() and (kv == -3.0e38).all()
+
+    def thrice(e, kw):            # every row three times, with its row arrays
+        def rep(t):
+            return t[:N // 3].repeat(3, *([1] * (t.dim() - 1))).contiguous()
+        kw = dict(kw, row_scale=rep(kw["row_scale"]))
+        if "assign" in kw:
+            kw["assign"] = rep(kw["assign"])
+        return rep(e), kw
+
+    # ties by value go to the lowest row
+    kv, ki = _k3_int8_call(mode, B, N, D, 30, g, dev, store=thrice)
+    same = kv[:, 1:] == kv[:, :-1]
+    assert bool(same.any()) and bool((ki[:, 1:][same] > ki[:, :-1][same]).all())
+
+    def misaligned(e, kw):        # rows that do not start on 16 bytes
+        flat = torch.zeros(e.numel() + 1, dtype=e.dtype, device=dev)
+        flat[1:] = e.reshape(-1)
+        return flat[1:].view(e.shape), kw
+
+    _k3_int8_call(mode, B, N, D, 30, g, dev, store=misaligned)
+    assert stream_topk.launches > 0
+
+
+def test_k3_planner_constants_match_the_library(dev):
+    from rag_challenge_2_tpu_torch.ops.stream_topk import CONSTANTS, library_constants
+
+    assert library_constants() == CONSTANTS

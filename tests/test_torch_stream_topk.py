@@ -273,3 +273,55 @@ def test_stream_topk_never_falls_back_off_the_cpu():
     q = torch.zeros((1, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         stream_topk(q, torch.zeros((4, 8), device="meta"), 2)
+
+
+# ---- the kernel's planner (pure Python: the grid each call launches) -------
+
+from rag_challenge_2_tpu_torch.ops import stream_topk as sk  # noqa: E402
+
+
+@pytest.mark.parametrize("B,two_pass,regime,tile", [
+    (1, False, "int8_small", 16), (4, False, "int8_small", 16),
+    (16, False, "int8_small", 16), (17, False, "int8_large", 64),
+    (64, False, "int8_large", 64), (65, False, "int8_large", 128),
+    (127, False, "int8_large", 128), (128, False, "int8_large", 128),
+    (1, True, "int8_small", 16), (8, True, "int8_small", 16),
+    (9, True, "int8_large", 64), (32, True, "int8_large", 64),
+    (33, True, "int8_large", 128), (64, True, "int8_large", 128),
+    (65, True, "int8_large", 256), (128, True, "int8_large", 256),
+])
+def test_plan_picks_the_int8_regime_from_the_batch(B, two_pass, regime, tile):
+    """The small regime holds at most 16 code rows (2B in 2-pass); above
+    it, the smallest large tile that holds them."""
+    p = sk.plan(B, two_pass, True, 1_666_666, 132)
+    assert (p.regime, p.query_tile) == (regime, tile)
+    assert p.query_tile >= (2 * B if two_pass else B)
+
+
+@pytest.mark.parametrize("N", [1, 127, 128, 129, 5000, 1_666_666, 10_000_000])
+@pytest.mark.parametrize("B,two_pass", [(4, False), (8, True), (127, False), (127, True)])
+def test_plan_reads_the_store_once_per_int8_call(N, B, two_pass):
+    """A persistent grid of row chunks, each for all queries: the chunks
+    tile N exactly once, in whole 128-row tiles, with at most one (large)
+    or two (small) blocks per SM."""
+    sms = 132
+    p = sk.plan(B, two_pass, True, N, sms)
+    assert p.store_passes == 1
+    assert p.tile_rows == sk.INT8_TILE_ROWS and p.rows_per_chunk % p.tile_rows == 0
+    assert (p.n_chunks - 1) * p.rows_per_chunk < N <= p.n_chunks * p.rows_per_chunk
+    per_sm = sk.SMALL_BLOCKS_PER_SM if p.regime == "int8_small" else sk.LARGE_BLOCKS_PER_SM
+    assert p.n_chunks <= per_sm * sms
+
+
+@pytest.mark.parametrize("B,passes", [(1, 1), (64, 1), (65, 2), (128, 2)])
+def test_plan_keeps_the_float_forms_first_design(B, passes):
+    """f32 / bf16: 64-row query groups, each reading the store, about two
+    blocks per SM between them."""
+    p = sk.plan(B, False, False, 1_000_000, 132)
+    assert (p.regime, p.query_tile, p.tile_rows, p.store_passes) == ("float", 64, 64, passes)
+    assert p.n_chunks <= -(-2 * 132 // passes)
+
+
+def test_planner_constants_are_the_ones_the_plan_uses():
+    assert sk.CONSTANTS == (64, 64, 2, 128, 16, 2, 1, 64, 128, 256, 16)
+    assert set(sk.stream_topk.regime_launches) == set(sk.REGIMES)

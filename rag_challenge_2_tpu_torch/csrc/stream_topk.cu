@@ -22,7 +22,8 @@
 //     What is left is the epilogue: B x N scores to test against the
 //     queries' k-th values, ~1.3e9 at 10M rows.
 //   * f32 and bf16 (B up to 128): bound by the CUDA cores' IEEE f32 FMA
-//     rate (no TF32): 130 G FMA at 1M x 1024, B = 127, ~3.9 ms at peak.
+//     rate (no TF32): 130 G FMA at 1M x 1024, B = 127, ~3.9 ms at peak;
+//     below ~16 queries by the store read.
 //
 // What the int8 design does about it (kernel scan_i8):
 //   * products on the tensor cores: wgmma m64nNk32 s8 x s8 -> s32, with the
@@ -68,10 +69,13 @@
 //     neighbouring queries share one 32-byte sector and the gathers of a
 //     thread's values are independent loads.
 
-// The f32 and bf16 forms (kernel stream_tiles) are the first design: 64
-// query rows x 64 store rows per block, 4 x 4 register tiles of IEEE f32
-// FMA, a 3-stage cp.async ring of 128-byte D-chunks, the same gate and
-// merge; a call reads the store ceil(B / 64) times.
+// The f32 and bf16 forms run scan_float (float_scan.cuh, shared with K1;
+// its source note sets out the layout): the query tile picked from the
+// batch (8 to 128 queries), 16 queries x 4 rows of accumulators per thread
+// at the large tiles (one shared-memory wavefront per 8-16 FMAs), one store
+// read per call on a persistent grid, TMA stages, and the register gate
+// with candidate lists.  They are bound by the f32 FMA rate of the CUDA
+// cores above ~16 queries.
 //
 // Every block writes its k candidates per query; a second pass merges
 // them under (value desc, row asc) in levels of 64 chunks, as K1's merge
@@ -79,388 +83,75 @@
 // slots past the eligible rows keep row -1 and NEG_INF, as the Pallas
 // kernel and blocked_topk return them.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <algorithm>
-#include <climits>
 #include <cstdio>
-#include <cstring>
-#include <type_traits>
+
+#include "float_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 64;
 constexpr int kMergeGroup = 64;   // chunk lists merged per block and level
-constexpr float kNegInf = -3.0e38f;
-constexpr unsigned kFull = 0xffffffffu;
-
-// ---- f32 / bf16 (stream_tiles)
-constexpr int kQRows = 64;        // query rows per block
-constexpr int kTileRows = 64;     // store rows per tile
-constexpr int kStages = 3;        // depth of the cp.async ring
-constexpr int kPadBytes = 16;     // shared-memory row padding
-constexpr int kScoreStride = kTileRows + 2;
-constexpr int kFloatBlocksPerSM = 2;
 
 // ---- int8 (scan_i8)
 constexpr int kI8Rows = 128;      // store rows per tile (the TMA box's rows)
-constexpr int kChunk = 128;       // D bytes per stage (the TMA box's width)
 constexpr int kSmallRows = 16;    // code rows of the small-batch regime
 constexpr int kCandCap = 16;      // gated candidates buffered per query
-constexpr int kScratch = 4;       // values one gate pass notes per thread
-constexpr int kMaxStages = 8;
-constexpr int kSmemBlockMax = 232448;   // 227 KB: one block per SM
-constexpr int kSmemSM = 233472;         // 228 KB per SM
-constexpr int kSmemReserved = 1024;     // per block, taken by the runtime
-constexpr int kTmaError = 100000;       // + CUresult of a failed encode
-constexpr uint64_t kStageWaitNs = 4000000000ull;   // 4 s: a stuck stage traps
-
-// total order of candidates: higher value first, then lower row
-__device__ __forceinline__ bool better(float v1, int r1, float v2, int r2) {
-  return v1 > v2 || (v1 == v2 && r1 < r2);
-}
-
-__device__ __forceinline__ void warp_best(float& v, int& r) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int orow = __shfl_xor_sync(kFull, r, off);
-    if (better(ov, orow, v, r)) {
-      v = ov;
-      r = orow;
-    }
-  }
-}
-
-// Entries of the sorted list (v, r)[0, k) that are better than (cv, cr).
-__device__ __forceinline__ int count_better(const float* v, const int* r,
-                                            int k, float cv, int cr) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (better(v[mid], r[mid], cv, cr)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// ======================================================== f32 / bf16 path
-
-template <typename ET> struct Elem;
-template <> struct Elem<float> {
-  using Raw = uint32_t;
-};
-template <> struct Elem<__nv_bfloat16> {
-  using Raw = uint16_t;
-};
-
-template <typename ET>
-struct Layout {
-  static constexpr int kDC = 32;                            // elements per D-chunk
-  static constexpr int kQBytes = kDC * (int)sizeof(float);  // 128
-  static constexpr int kTBytes = kDC * (int)sizeof(ET);     // 128, 64
-  static constexpr int kQStride = kQBytes + kPadBytes;
-  static constexpr int kTStride = kTBytes + kPadBytes;
-  static constexpr int kStageBytes = kQRows * kQStride + kTileRows * kTStride;
-  static constexpr int kSmemBytes = kStages * kStageBytes +
-                                    kQRows * kScoreStride * (int)sizeof(float) +
-                                    kQRows * kMaxK * (int)(sizeof(float) + sizeof(int));
-};
-
-struct Params {
-  const float* q;           // [B, D] f32
-  const void* emb;          // [N, D] row-major, f32 or bf16
-  const uint8_t* mask;      // [N] row mask shared by all queries, or null
-  int B;
-  int N;
-  int D;
-  int k;
-  int rows_per_chunk;
-  float* cand_v;            // [B, n_chunks, k]
-  int* cand_i;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void bf16x8(const uint4& raw, float* x) {
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(e[i]);
-}
-
-template <typename ET, bool kVec>
-__global__ void __launch_bounds__(kThreads, kFloatBlocksPerSM) stream_tiles(Params p) {
-  using L = Layout<ET>;
-  using Raw = typename Elem<ET>::Raw;
-  constexpr int kQPieces = L::kQBytes / 16;
-  constexpr int kTPieces = L::kTBytes / 16;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* s_tile = reinterpret_cast<float*>(smem + kStages * L::kStageBytes);
-  float* top_v = s_tile + kQRows * kScoreStride;
-  int* top_i = reinterpret_cast<int*>(top_v + kQRows * kMaxK);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int b0 = blockIdx.x * kQRows;
-  const int chunk = blockIdx.y;
-  const int n_chunks = gridDim.y;
-  const int r_begin = chunk * p.rows_per_chunk;
-  const int r_end = min(p.N, r_begin + p.rows_per_chunk);
-  const int n_tiles =
-      r_end > r_begin ? (r_end - r_begin + kTileRows - 1) / kTileRows : 0;
-  const int n_dch = (p.D + L::kDC - 1) / L::kDC;
-  const int total = n_tiles * n_dch;
-  const int k = p.k;
-  const float* qg = p.q;
-  const ET* eg = static_cast<const ET*>(p.emb);
-
-  for (int i = tid; i < kQRows * kMaxK; i += kThreads) {
-    top_v[i] = kNegInf;
-    top_i[i] = -1;
-  }
-
-  // stage s = (tile s / n_dch, D-chunk s % n_dch) into ring slot `slot`
-  auto load_stage = [&](int s, int slot) {
-    const int t = s / n_dch;
-    const int c = s % n_dch;
-    unsigned char* qs = smem + slot * L::kStageBytes;
-    unsigned char* ts = qs + kQRows * L::kQStride;
-    const int row0 = r_begin + t * kTileRows;
-    for (int u = tid; u < kQRows * kQPieces; u += kThreads) {
-      const int i = u / kQPieces;
-      const int piece = u % kQPieces;
-      const int src = b0 + i < p.B ? b0 + i : -1;
-      const int d0 = c * L::kDC + piece * 4;
-      unsigned char* dst = qs + i * L::kQStride + piece * 16;
-      if constexpr (kVec) {
-        const bool ok = src >= 0 && d0 < p.D;
-        cp_async16(dst, ok ? qg + (size_t)src * p.D + d0 : qg, ok);
-      } else {
-        float* d = reinterpret_cast<float*>(dst);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          d[e] = (src >= 0 && d0 + e < p.D) ? qg[(size_t)src * p.D + d0 + e] : 0.f;
-        }
-      }
-    }
-    for (int u = tid; u < kTileRows * kTPieces; u += kThreads) {
-      const int i = u / kTPieces;
-      const int piece = u % kTPieces;
-      const int row = row0 + i;
-      constexpr int kPer = 16 / (int)sizeof(ET);
-      const int d0 = c * L::kDC + piece * kPer;
-      unsigned char* dst = ts + i * L::kTStride + piece * 16;
-      if constexpr (kVec) {
-        const bool ok = row < r_end && d0 < p.D;
-        cp_async16(dst, ok ? eg + (size_t)row * p.D + d0 : eg, ok);
-      } else {
-        const Raw* src = reinterpret_cast<const Raw*>(eg);
-        Raw* d = reinterpret_cast<Raw*>(dst);
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) {
-          d[e] = (row < r_end && d0 + e < p.D) ? src[(size_t)row * p.D + d0 + e]
-                                               : Raw(0);
-        }
-      }
-    }
-  };
-
-  // this thread's 4 x 4 register tile: query-tile rows qr0 .. qr0 + 3 and
-  // store-tile rows tr0 + 8 j (8 neighbouring lanes read 8 neighbouring
-  // store rows and one broadcast query row)
-  const int wq = warp % 4;
-  const int wr = warp / 4;
-  const int qr0 = wq * 16 + (lane / 8) * 4;
-  const int tr0 = wr * 32 + lane % 8;
-
-  float acc[4][4];
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) load_stage(s, s);
-    cp_async_commit();
-  }
-  __syncthreads();
-
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage s landed; every thread is done with slot s - 1
-    {
-      const int nx = s + kStages - 1;
-      if (nx < total) load_stage(nx, nx % kStages);
-      cp_async_commit();
-    }
-    const int c = s % n_dch;
-    if (c == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
-    const unsigned char* qs = smem + (s % kStages) * L::kStageBytes;
-    const unsigned char* ts = qs + kQRows * L::kQStride;
-    if constexpr (std::is_same<ET, float>::value) {
-#pragma unroll
-      for (int piece = 0; piece < kTPieces; ++piece) {
-        float4 a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(qs + (qr0 + i) * L::kQStride + piece * 16);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          b[j] = *reinterpret_cast<const float4*>(ts + (tr0 + 8 * j) * L::kTStride + piece * 16);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float x = acc[i][j];
-            x = fmaf(a[i].x, b[j].x, x);
-            x = fmaf(a[i].y, b[j].y, x);
-            x = fmaf(a[i].z, b[j].z, x);
-            x = fmaf(a[i].w, b[j].w, x);
-            acc[i][j] = x;
-          }
-      }
-    } else {
-#pragma unroll
-      for (int piece = 0; piece < kTPieces; ++piece) {  // 8 elements each
-        float b[4][8];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bf16x8(*reinterpret_cast<const uint4*>(ts + (tr0 + 8 * j) * L::kTStride + piece * 16),
-                 b[j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 a0 = *reinterpret_cast<const float4*>(
-              qs + (qr0 + i) * L::kQStride + piece * 32);
-          const float4 a1 = *reinterpret_cast<const float4*>(
-              qs + (qr0 + i) * L::kQStride + piece * 32 + 16);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float x = acc[i][j];
-            x = fmaf(a0.x, b[j][0], x);
-            x = fmaf(a0.y, b[j][1], x);
-            x = fmaf(a0.z, b[j][2], x);
-            x = fmaf(a0.w, b[j][3], x);
-            x = fmaf(a1.x, b[j][4], x);
-            x = fmaf(a1.y, b[j][5], x);
-            x = fmaf(a1.z, b[j][6], x);
-            x = fmaf(a1.w, b[j][7], x);
-            acc[i][j] = x;
-          }
-        }
-      }
-    }
-    if (c != n_dch - 1) continue;
-
-    // ---- the tile is scored: epilogue into shared memory, then merge
-    const int row0 = r_begin + (s / n_dch) * kTileRows;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int lr = tr0 + 8 * j;
-      const int row = row0 + lr;
-      const bool ok = row < r_end && (p.mask == nullptr || p.mask[row] != 0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s_tile[(qr0 + i) * kScoreStride + lr] = ok ? acc[i][j] : kNegInf;
-    }
-    __syncthreads();
-
-    // one warp per query; merge only when a score beats the k-th
-    for (int lq = warp; lq < kQRows; lq += kWarps) {
-      if (b0 + lq >= p.B) break;  // warp-uniform
-      float* tv = top_v + lq * kMaxK;
-      int* ti = top_i + lq * kMaxK;
-      const float* st = s_tile + lq * kScoreStride;
-      const float kth = tv[k - 1];
-      const float v0 = st[lane];
-      const float v1 = st[lane + 32];
-      const int rw0 = row0 + lane;
-      const int rw1 = row0 + lane + 32;
-      const bool c0 = v0 > kth;
-      const bool c1 = v1 > kth;
-      const unsigned m0 = __ballot_sync(kFull, c0);
-      const unsigned m1 = __ballot_sync(kFull, c1);
-      if ((m0 | m1) == 0u) continue;
-      const float e0v = lane < k ? tv[lane] : kNegInf;
-      const int e0r = lane < k ? ti[lane] : -1;
-      const float e1v = lane + 32 < k ? tv[lane + 32] : kNegInf;
-      const int e1r = lane + 32 < k ? ti[lane + 32] : -1;
-      // new position = entries better than it, in the list and among the
-      // tile's candidates; positions >= k drop out
-      int pe0 = lane, pe1 = lane + 32, pc0 = 0, pc1 = 0;
-      for (int half = 0; half < 2; ++half) {
-        for (unsigned bits = half ? m1 : m0; bits != 0u; bits &= bits - 1) {
-          const int t = __ffs(bits) - 1 + 32 * half;
-          const float yv = st[t];
-          const int yr = row0 + t;
-          pe0 += better(yv, yr, e0v, e0r);
-          pe1 += better(yv, yr, e1v, e1r);
-          pc0 += better(yv, yr, v0, rw0);
-          pc1 += better(yv, yr, v1, rw1);
-        }
-      }
-      if (c0) pc0 += count_better(tv, ti, k, v0, rw0);
-      if (c1) pc1 += count_better(tv, ti, k, v1, rw1);
-      __syncwarp();
-      if (lane < k && pe0 < k) {
-        tv[pe0] = e0v;
-        ti[pe0] = e0r;
-      }
-      if (lane + 32 < k && pe1 < k) {
-        tv[pe1] = e1v;
-        ti[pe1] = e1r;
-      }
-      if (c0 && pc0 < k) {
-        tv[pc0] = v0;
-        ti[pc0] = rw0;
-      }
-      if (c1 && pc1 < k) {
-        tv[pc1] = v1;
-        ti[pc1] = rw1;
-      }
-      __syncwarp();
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  for (int lq = warp; lq < kQRows; lq += kWarps) {
-    const int b = b0 + lq;
-    if (b >= p.B) break;
-    for (int j = lane; j < k; j += 32) {
-      const size_t o = ((size_t)b * n_chunks + chunk) * k + j;
-      p.cand_v[o] = top_v[lq * kMaxK + j];
-      p.cand_i[o] = top_i[lq * kMaxK + j];
-    }
-  }
-}
 
 // ============================================================ int8 path
+
+// Rank-merge up to 32 candidates (one per lane) into the sorted list
+// (tv, ti)[0, k): each entry and each candidate moves to the number of
+// entries and candidates better than it; positions >= k drop out.
+__device__ __forceinline__ void merge_candidates(float* tv, int* ti, int k,
+                                                 const float* cv_s, const int* cr_s,
+                                                 int n, int lane) {
+  const bool c = lane < n;
+  const float cv = c ? cv_s[lane] : kNegInf;
+  const int cr = c ? cr_s[lane] : INT_MAX;
+  const unsigned m = __ballot_sync(kFull, c);
+  const float e0v = lane < k ? tv[lane] : kNegInf;
+  const int e0r = lane < k ? ti[lane] : -1;
+  const float e1v = lane + 32 < k ? tv[lane + 32] : kNegInf;
+  const int e1r = lane + 32 < k ? ti[lane + 32] : -1;
+  int pe0 = lane, pe1 = lane + 32, pc = 0;
+  for (unsigned bits = m; bits != 0u; bits &= bits - 1) {
+    const int t = __ffs(bits) - 1;
+    const float yv = __shfl_sync(kFull, cv, t);
+    const int yr = __shfl_sync(kFull, cr, t);
+    pe0 += better(yv, yr, e0v, e0r);
+    pe1 += better(yv, yr, e1v, e1r);
+    pc += better(yv, yr, cv, cr);
+  }
+  if (c) pc += count_better(tv, ti, k, cv, cr);
+  __syncwarp();
+  if (lane < k && pe0 < k) {
+    tv[pe0] = e0v;
+    ti[pe0] = e0r;
+  }
+  if (lane + 32 < k && pe1 < k) {
+    tv[pe1] = e1v;
+    ti[pe1] = e1r;
+  }
+  if (c && pc < k) {
+    tv[pc] = cv;
+    ti[pc] = cr;
+  }
+  __syncwarp();
+}
+
+// The exact test of a value that passed the gate's first test, and its
+// append to query q's candidate list: compares with the k-th entry under
+// (value desc, row asc).  Returns false when the list is full (the value
+// is retried after the merge).  Kept out of line: few values get here,
+// and the caller's accumulators stay in registers.
+__device__ __noinline__ bool offer(float v, int row, int q, int k, const float* top_v,
+                                   const int* top_i, int* cnt, float* cand_v, int* cand_r) {
+  if (!better(v, row, top_v[q * k + k - 1], top_i[q * k + k - 1])) return true;
+  const int slot = atomicAdd(cnt + q, 1);
+  if (slot >= kCandCap) return false;
+  cand_v[q * kCandCap + slot] = v;
+  cand_r[q * kCandCap + slot] = row;
+  return true;
+}
 
 // The query tile of kQN code rows: the small regime (kQN = 16) keeps the
 // code block resident; the large one (kQN = 64/128/256) stages it per
@@ -506,8 +197,6 @@ struct I8Smem {
   int total;   // bytes to request, with the alignment slack
 };
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
 __host__ __device__ inline I8Smem i8_smem(int qn, bool two_pass, int D, int k,
                                           int n_stages) {
   const bool small = qn == kSmallRows;
@@ -543,61 +232,6 @@ __host__ __device__ inline I8Smem i8_smem(int qn, bool two_pass, int D, int k,
   o += kMaxStages * 8;
   L.total = o + 1024;
   return L;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits for a ring stage.  A stage that never completes (a transfer whose
-// bytes do not match the expected count, a tensor map that does not fit
-// the call) would spin forever and hang the card, so after kStageWaitNs
-// the block traps: the launch fails, and the caller's next synchronisation
-// raises.  A healthy stage arrives within microseconds.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const uint64_t t = global_ns();
-    if (t0 == 0) {
-      t0 = t;
-    } else if (t - t0 > kStageWaitNs) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0,
-                                       int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
 }
 
 __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, int c0,
@@ -794,61 +428,6 @@ __device__ void load_chunk_by_threads(unsigned char* dst, int rows, const int8_t
     *reinterpret_cast<uint32_t*>(dst + i * kChunk + (((w >> 2) ^ (i & 7)) << 4) +
                                  (w & 3) * 4) = word;
   }
-}
-
-// Rank-merge up to kCandCap candidates (one per lane) into the sorted list
-// (tv, ti)[0, k): each entry and each candidate moves to the number of
-// entries and candidates better than it; positions >= k drop out.
-__device__ __forceinline__ void merge_candidates(float* tv, int* ti, int k,
-                                                 const float* cv_s, const int* cr_s,
-                                                 int n, int lane) {
-  const bool c = lane < n;
-  const float cv = c ? cv_s[lane] : kNegInf;
-  const int cr = c ? cr_s[lane] : INT_MAX;
-  const unsigned m = __ballot_sync(kFull, c);
-  const float e0v = lane < k ? tv[lane] : kNegInf;
-  const int e0r = lane < k ? ti[lane] : -1;
-  const float e1v = lane + 32 < k ? tv[lane + 32] : kNegInf;
-  const int e1r = lane + 32 < k ? ti[lane + 32] : -1;
-  int pe0 = lane, pe1 = lane + 32, pc = 0;
-  for (unsigned bits = m; bits != 0u; bits &= bits - 1) {
-    const int t = __ffs(bits) - 1;
-    const float yv = __shfl_sync(kFull, cv, t);
-    const int yr = __shfl_sync(kFull, cr, t);
-    pe0 += better(yv, yr, e0v, e0r);
-    pe1 += better(yv, yr, e1v, e1r);
-    pc += better(yv, yr, cv, cr);
-  }
-  if (c) pc += count_better(tv, ti, k, cv, cr);
-  __syncwarp();
-  if (lane < k && pe0 < k) {
-    tv[pe0] = e0v;
-    ti[pe0] = e0r;
-  }
-  if (lane + 32 < k && pe1 < k) {
-    tv[pe1] = e1v;
-    ti[pe1] = e1r;
-  }
-  if (c && pc < k) {
-    tv[pc] = cv;
-    ti[pc] = cr;
-  }
-  __syncwarp();
-}
-
-// The exact test of a value that passed the gate's first test, and its
-// append to query q's candidate list: compares with the k-th entry under
-// (value desc, row asc).  Returns false when the list is full (the value
-// is retried after the merge).  Kept out of line: few values get here,
-// and the caller's accumulators stay in registers.
-__device__ __noinline__ bool offer(float v, int row, int q, int k, const float* top_v,
-                                   const int* top_i, int* cnt, float* cand_v, int* cand_r) {
-  if (!better(v, row, top_v[q * k + k - 1], top_i[q * k + k - 1])) return true;
-  const int slot = atomicAdd(cnt + q, 1);
-  if (slot >= kCandCap) return false;
-  cand_v[q * kCandCap + slot] = v;
-  cand_r[q * kCandCap + slot] = row;
-  return true;
 }
 
 template <int kQN, bool kTwoPass>
@@ -1197,28 +776,6 @@ cudaError_t merge_levels(float* cand_v, int* cand_i, int B, int n_chunks, int k,
   }
 }
 
-template <typename ET>
-cudaError_t launch_float(const Params& p, int n_chunks, float* out_v, int* out_i,
-                         cudaStream_t stream) {
-  using L = Layout<ET>;
-  const bool vec = (size_t)p.D * sizeof(ET) % 16 == 0 &&
-                   (size_t)p.D * sizeof(float) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(p.emb) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(p.q) % 16 == 0;
-  auto kernel = vec ? stream_tiles<ET, true> : stream_tiles<ET, false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.B + kQRows - 1) / kQRows, n_chunks);
-  kernel<<<grid, kThreads, L::kSmemBytes, stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return merge_levels(p.cand_v, p.cand_i, p.B, n_chunks, p.k, out_v, out_i, stream);
-}
-
 template <int kQN, bool kTwoPass>
 int launch_i8(I8Params p, int n_chunks, float* out_v, int* out_i, cudaStream_t stream) {
   using T = I8Tile<kQN>;
@@ -1289,17 +846,24 @@ int launch_i8_tile(int qn, const I8Params& p, int n_chunks, float* ov, int* oi,
 
 extern "C" {
 
-// The planner's constants, in this order: f32/bf16 store rows per tile,
-// query rows per block, blocks per SM; int8 store rows per tile, the small
-// regime's code rows, its blocks per SM, the large regime's blocks per SM,
-// its three query tiles; candidate slots per query.  Returns the count.
+// The planner's constants, in this order: int8 store rows per tile, the
+// small regime's code rows, its blocks per SM, the large regime's blocks
+// per SM, its three query tiles; candidate slots per query; then
+// scan_float's (float_scan_constants).  Returns the count.
 int rc2_stream_topk_constants(int* out, int n) {
-  const int c[] = {kTileRows, kQRows, kFloatBlocksPerSM, kI8Rows, kSmallRows,
-                   I8Tile<kSmallRows>::kBlocksPerSM, I8Tile<128>::kBlocksPerSM,
-                   64, 128, 256, kCandCap};
+  const int c[] = {kI8Rows, kSmallRows, I8Tile<kSmallRows>::kBlocksPerSM,
+                   I8Tile<128>::kBlocksPerSM, 64, 128, 256, kCandCap};
   const int m = (int)(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < n && i < m; ++i) out[i] = c[i];
-  return m;
+  return m + (n > m ? float_scan_constants(out + m, n - m) : 0);
+}
+
+// The stage count scan_float gives a tile, or < 2 when it does not fit.
+int rc2_stream_topk_float_stages(int query_tile, int warp_queries, int tile_rows, int emb_bf16,
+                          int k,
+                                 int blocks_per_sm) {
+  return float_scan_stages(query_tile, warp_queries, tile_rows, emb_bf16 ? 2 : 4, k,
+                           blocks_per_sm);
 }
 
 // Scratch entries per (query, k) slot: the chunks' candidates plus the
@@ -1314,21 +878,25 @@ int rc2_stream_topk_scratch_chunks(int n_chunks) {
 // qc_t [n_codes, B] (the bias q . centroids^T, transposed) add the residual
 // bias (both null without it).  query_tile picks the int8 regime: 16
 // (small, the code block resident) or 64 / 128 / 256 code rows (large, staged);
-// the grid is n_chunks blocks of rows_per_chunk rows (f32 / bf16: times
-// ceil(B / 64)).
+// for f32 / bf16 it picks scan_float's tile, with box_rows (rows per
+// stage) and blocks_per_sm.  The grid is n_chunks blocks of
+// rows_per_chunk rows.
 int rc2_stream_topk(const void* q, const void* emb, int kind, int mode,
                     const void* q_scale, const void* q_scale_lo,
                     const void* row_scale, const void* assign, const void* qc_t,
                     const void* mask, int B, int N, int D, int k, int query_tile,
-                    int rows_per_chunk, int n_chunks, void* cand_v, void* cand_i,
+                    int rows_per_chunk, int n_chunks, int box_rows, int blocks_per_sm,
+                    void* cand_v, void* cand_i,
                     void* out_v, void* out_i, void* stream) {
   float* ov = static_cast<float*>(out_v);
   int* oi = static_cast<int*>(out_i);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > kMaxK || B < 1 || N < 1 || D < 1 || n_chunks < 1)
+  if (k < 1 || k > kMaxK || B < 1 || N < 1 || D < 1 || n_chunks < 1 ||
+      (long long)n_chunks * rows_per_chunk < N)
     return (int)cudaErrorInvalidValue;
   if (mode == 0) {
-    Params p;
+    if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
+    FloatParams p;
     p.q = static_cast<const float*>(q);
     p.emb = emb;
     p.mask = static_cast<const uint8_t*>(mask);
@@ -1337,11 +905,16 @@ int rc2_stream_topk(const void* q, const void* emb, int kind, int mode,
     p.D = D;
     p.k = k;
     p.rows_per_chunk = rows_per_chunk;
+    p.box_rows = box_rows;
+    p.tma_box = 0;
+    p.n_stages = 0;
+    p.tma = 0;
     p.cand_v = static_cast<float*>(cand_v);
     p.cand_i = static_cast<int*>(cand_i);
-    if (kind == 0) return (int)launch_float<float>(p, n_chunks, ov, oi, s);
-    if (kind == 1) return (int)launch_float<__nv_bfloat16>(p, n_chunks, ov, oi, s);
-    return (int)cudaErrorInvalidValue;
+    const int rc =
+        launch_scan_float<false>(p, kind == 1, query_tile, n_chunks, blocks_per_sm, s);
+    if (rc != 0) return rc;
+    return (int)merge_levels(p.cand_v, p.cand_i, B, n_chunks, k, ov, oi, s);
   }
   if (kind != 2 || (mode != 1 && mode != 2)) return (int)cudaErrorInvalidValue;
   I8Params p;

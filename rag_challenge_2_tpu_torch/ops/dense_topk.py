@@ -1,11 +1,13 @@
-"""Kernel K1: fused dense score + running top-k (``csrc/dense_topk.cu``).
+"""Kernel K1: fused dense score + carried top-k (``csrc/dense_topk.cu``).
 
 Port of the TPU kernel ``rag_challenge_2_tpu/ops/pallas_topk.py``
 (``pallas_dense_topk``).  On the H100 it scores f32 queries against an f32
 or bf16 row store in IEEE f32 and keeps a per-query top-k on chip, so the
-``[B, N]`` score matrix is never written; the source note in the ``.cu``
-file says what bounds it (the store read: memory-bound at B = 8) and how
-the two passes are laid out.
+``[B, N]`` score matrix is never written.  A call is one scoring launch
+(``scan_float`` of ``csrc/float_scan.cuh``: a persistent grid that reads
+the store once for every batch up to 64, TMA stages, a gated carried
+top-k) and at most one merge launch; :func:`plan` cuts the call and the
+source notes of the two files say what bounds it.
 
 Queries stay f32 against a bf16 store, as the engine's scoring does (it
 promotes ``q`` f32 x bf16 rows to f32); the Pallas kernel instead cast
@@ -25,6 +27,7 @@ import torch
 
 from .. import device  # noqa: F401  (full-f32 matmuls for the plain version)
 from ..utils import kernels
+from .float_scan import FloatPlan, float_plan, sm_count
 from .topk import NEG_INF, stable_topk
 
 MAX_K = 64
@@ -48,16 +51,39 @@ def dense_topk_plain(
     return vals.contiguous(), idx.to(torch.int32)
 
 
+_LIB = None
+
+
 def _lib():
-    lib = kernels.load_library("dense_topk")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rc2_dense_topk.restype = I
-    lib.rc2_dense_topk.argtypes = [P, P, I, P, I, I, I, I, P, P, P, P, P]
-    lib.rc2_dense_topk_tile_rows.restype = I
-    lib.rc2_dense_topk_tile_rows.argtypes = []
-    lib.rc2_dense_topk_scratch_tiles.restype = I
-    lib.rc2_dense_topk_scratch_tiles.argtypes = [I]
-    return lib
+    """The library, its argument types declared once at load."""
+    global _LIB
+    if _LIB is None:
+        lib = kernels.load_library("dense_topk")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rc2_dense_topk.restype = I
+        lib.rc2_dense_topk.argtypes = [P, P, I, P] + [I] * 9 + [P] * 5
+        lib.rc2_dense_topk_constants.restype = I
+        lib.rc2_dense_topk_constants.argtypes = [P, I]
+        lib.rc2_dense_topk_stages.restype = I
+        lib.rc2_dense_topk_stages.argtypes = [I] * 6
+        _LIB = lib
+    return _LIB
+
+
+def library_constants() -> Tuple[int, ...]:
+    """The library's own planner constants, in the order of
+    ``float_scan.FLOAT_CONSTANTS`` (builds the library)."""
+    buf = (ctypes.c_int * 32)()
+    n = _lib().rc2_dense_topk_constants(ctypes.cast(buf, ctypes.c_void_p), 32)
+    return tuple(buf[:n])
+
+
+def plan(B: int, N: int, k: int, bf16: bool, sms: int) -> FloatPlan:
+    """How K1 cuts a call of ``B <= 64`` queries over ``N`` rows on a card
+    of ``sms`` SMs (see ``float_scan.float_plan``): one store pass."""
+    if not 1 <= B <= MAX_QUERIES:
+        raise ValueError(f"K1 takes 1..{MAX_QUERIES} queries, got {B}")
+    return float_plan(B, N, min(k, N), 2 if bf16 else 4, sms)
 
 
 def _check_cuda_args(q, emb, k, mask) -> None:
@@ -106,19 +132,23 @@ def dense_topk_fused(
     B, D = q.shape
     N = emb.shape[0]
     k_eff = min(k, N)
-    lib = _lib()
-    n_tiles = -(-N // lib.rc2_dense_topk_tile_rows())
-    scratch = B * lib.rc2_dense_topk_scratch_tiles(n_tiles) * k_eff
+    bf16 = emb.dtype == torch.bfloat16
     dev = q.device
-    cand_v = torch.empty(scratch, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(scratch, dtype=torch.int32, device=dev)
-    out_v = torch.empty((B, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k_eff), dtype=torch.int32, device=dev)
+    pl = plan(B, N, k_eff, bf16, sm_count(dev))
+    # one buffer for the blocks' candidate lists (values, then rows) and one
+    # for the result
+    n_cand = B * pl.n_chunks * k_eff if pl.n_chunks > 1 else 0
+    cand = torch.empty(2 * n_cand, dtype=torch.float32, device=dev)
+    out = torch.empty((2, B, k_eff), dtype=torch.float32, device=dev)
+    out_v, out_i = out[0], out[1].view(torch.int32)
+    lib = _lib()
     rc = lib.rc2_dense_topk(
-        q.data_ptr(), emb.data_ptr(), int(emb.dtype == torch.bfloat16),
+        q.data_ptr(), emb.data_ptr(), int(bf16),
         mask.data_ptr() if mask is not None else None, B, N, D, k_eff,
-        cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        pl.query_tile, pl.rows_per_chunk, pl.n_chunks, pl.box_rows,
+        pl.blocks_per_sm, cand.data_ptr(), cand.data_ptr() + 4 * n_cand,
+        out_v.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check_launch(lib, rc, "dense_topk")
     dense_topk_fused.launches += 1

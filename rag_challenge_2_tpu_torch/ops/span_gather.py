@@ -46,13 +46,20 @@ def gather_posting_spans_plain(
     return tuple(a[pos] for a in arrays)
 
 
+_LIB = None
+
+
 def _lib():
-    lib = kernels.load_library("span_gather")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rc2_span_gather.restype = I
-    lib.rc2_span_gather.argtypes = [
-        P, P, P, ctypes.c_longlong, P, I, I, P, P, P, P]
-    return lib
+    """The library, its argument types declared once at load."""
+    global _LIB
+    if _LIB is None:
+        lib = kernels.load_library("span_gather")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rc2_span_gather.restype = I
+        lib.rc2_span_gather.argtypes = [
+            P, P, P, ctypes.c_longlong, P, I, I, P, P, P, P]
+        _LIB = lib
+    return _LIB
 
 
 def gather_posting_spans(
@@ -92,8 +99,10 @@ def gather_posting_spans(
     if n < 1 or window < 1:
         raise ValueError("K2 needs a non-empty CSR and window >= 1")
     G = starts.shape[0]
-    outs = [torch.empty((G, window), dtype=a.dtype, device=a.device)
-            for a in arrays]
+    # one buffer for the 2-3 outputs (all 4-byte types; ids are its i32 view)
+    buf = torch.empty((len(arrays), G, window), dtype=torch.float32,
+                      device=starts.device)
+    outs = [buf[0].view(torch.int32)] + [buf[i] for i in range(1, len(arrays))]
     src = [a.data_ptr() for a in arrays] + [None] * (3 - len(arrays))
     dst = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
     lib = _lib()

@@ -13,8 +13,10 @@ batch: *small* (at most 16 code rows: B <= 16, or B <= 8 in 2-pass; the
 engine's routed slots) keeps the code block resident in shared memory and
 is bound by the store read; *large* (up to 256 code rows) stages the
 query's D-chunks beside 128-row store tiles.  Either reads the store from
-HBM once per call.  The f32 and bf16 forms keep the first design (64-row
-query tiles, IEEE f32 FMA on the CUDA cores).
+HBM once per call.  The f32 and bf16 forms (regime *float*) run
+``scan_float`` of ``csrc/float_scan.cuh``, the kernel K1 shares: IEEE f32
+FMA on the CUDA cores, a query tile of 8 to 128 picked from the batch and
+one store read per call as well.
 
 One wrapper, :func:`stream_topk`, takes every form the scan has:
 
@@ -43,6 +45,7 @@ import torch
 
 from .. import device  # noqa: F401  (full-f32 matmuls for the plain version)
 from ..utils import kernels
+from .float_scan import FLOAT_CONSTANTS, FloatPlan, float_plan, sm_count
 from .quant import I8_EXACT_F32_DIM, i8_dot, int8_epilogue
 from .topk import BLOCK_ROWS, NEG_INF, stable_topk
 
@@ -53,18 +56,15 @@ _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # The planner's constants.  The library exports its own values
 # (``rc2_stream_topk_constants``, in this order) and a card test holds
 # the two equal.
-FLOAT_TILE_ROWS = 64        # f32 / bf16: store rows per tile
-FLOAT_QUERY_ROWS = 64       # f32 / bf16: query rows per block
-FLOAT_BLOCKS_PER_SM = 2
 INT8_TILE_ROWS = 128        # int8: store rows per tile (the TMA box)
 SMALL_CODE_ROWS = 16        # int8 small regime: code rows, kept resident
 SMALL_BLOCKS_PER_SM = 2
 LARGE_BLOCKS_PER_SM = 1
 LARGE_QUERY_TILES = (64, 128, 256)   # int8 large regime: code rows per tile
-CAND_CAP = 16               # gated candidates buffered per query
-CONSTANTS = (FLOAT_TILE_ROWS, FLOAT_QUERY_ROWS, FLOAT_BLOCKS_PER_SM,
-             INT8_TILE_ROWS, SMALL_CODE_ROWS, SMALL_BLOCKS_PER_SM,
-             LARGE_BLOCKS_PER_SM, *LARGE_QUERY_TILES, CAND_CAP)
+CAND_CAP = 16               # gated candidates buffered per query (int8)
+MERGE_GROUP = 64            # chunk lists merged per block and level
+CONSTANTS = (INT8_TILE_ROWS, SMALL_CODE_ROWS, SMALL_BLOCKS_PER_SM,
+             LARGE_BLOCKS_PER_SM, *LARGE_QUERY_TILES, CAND_CAP, *FLOAT_CONSTANTS)
 REGIMES = ("float", "int8_small", "int8_large")
 
 
@@ -72,41 +72,48 @@ REGIMES = ("float", "int8_small", "int8_large")
 class Plan:
     """How one K3 call is cut: the regime, the query tile (code rows for
     int8), the row chunk each block owns, and how often the call reads
-    the store from HBM."""
+    the store from HBM.  ``cut`` is the f32 / bf16 kernel's full plan."""
     regime: str
     query_tile: int
     tile_rows: int
     rows_per_chunk: int
     n_chunks: int
     store_passes: int
+    cut: Optional[FloatPlan] = None
 
 
-def plan(B: int, two_pass: bool, int8: bool, N: int, sms: int) -> Plan:
+def plan(B: int, two_pass: bool, int8: bool, N: int, sms: int, k: int = 30,
+         elt: int = 4) -> Plan:
     """The kernel's grid for B logical queries over N rows on a card of
     ``sms`` SMs.  int8: the small regime up to 16 code rows (2B in
     2-pass), else the smallest large query tile that holds them; a
-    persistent grid of one (large) or two (small) blocks per SM, each
-    block a contiguous row chunk for all queries, so one store pass.
-    f32 / bf16: ceil(B / 64) query groups share about two blocks per SM,
-    and each group reads the store."""
-    if int8:
-        rows = 2 * B if two_pass else B
-        if rows <= SMALL_CODE_ROWS:
-            regime, tile_q, blocks = "int8_small", SMALL_CODE_ROWS, SMALL_BLOCKS_PER_SM * sms
-        else:
-            regime = "int8_large"
-            tile_q = min(t for t in LARGE_QUERY_TILES if t >= rows)
-            blocks = LARGE_BLOCKS_PER_SM * sms
-        tile_rows, passes = INT8_TILE_ROWS, 1
+    persistent grid of one (large) or two (small) blocks per SM.
+    f32 / bf16 (``elt`` bytes per element, top ``k``): the query tile of 8
+    to 128 that holds the batch, as ``float_scan.float_plan`` cuts it.
+    Either way each block owns a contiguous row chunk for all queries, so
+    the call reads the store once."""
+    if not int8:
+        cut = float_plan(B, N, min(k, N), elt, sms)
+        return Plan("float", cut.query_tile, cut.tile_rows, cut.rows_per_chunk,
+                    cut.n_chunks, cut.store_passes, cut)
+    rows = 2 * B if two_pass else B
+    if rows <= SMALL_CODE_ROWS:
+        regime, tile_q, blocks = "int8_small", SMALL_CODE_ROWS, SMALL_BLOCKS_PER_SM * sms
     else:
-        regime, tile_q, tile_rows = "float", FLOAT_QUERY_ROWS, FLOAT_TILE_ROWS
-        passes = -(-B // FLOAT_QUERY_ROWS)
-        blocks = -(-FLOAT_BLOCKS_PER_SM * sms // passes)
+        regime = "int8_large"
+        tile_q = min(t for t in LARGE_QUERY_TILES if t >= rows)
+        blocks = LARGE_BLOCKS_PER_SM * sms
+    tile_rows = INT8_TILE_ROWS
     tiles = -(-N // tile_rows)
     chunks = max(1, min(tiles, blocks))
     rows_per_chunk = -(-tiles // chunks) * tile_rows
-    return Plan(regime, tile_q, tile_rows, rows_per_chunk, -(-N // rows_per_chunk),
-                passes)
+    return Plan(regime, tile_q, tile_rows, rows_per_chunk, -(-N // rows_per_chunk), 1)
+
+
+def scratch_chunks(n_chunks: int) -> int:
+    """Scratch lists per query: the chunks' candidates plus the first merge
+    level's groups (the library's ``rc2_stream_topk_scratch_chunks``)."""
+    return n_chunks + -(-n_chunks // MERGE_GROUP)
 
 
 def block_scores(
@@ -171,24 +178,32 @@ def stream_topk_plain(
     return top_v.contiguous(), top_i.to(torch.int32)
 
 
+_LIB = None
+
+
 def _lib():
-    lib = kernels.load_library("stream_topk")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rc2_stream_topk.restype = I
-    lib.rc2_stream_topk.argtypes = [P, P, I, I, P, P, P, P, P, P, I, I, I, I, I,
-                                    I, I, P, P, P, P, P]
-    lib.rc2_stream_topk_constants.restype = I
-    lib.rc2_stream_topk_constants.argtypes = [P, I]
-    lib.rc2_stream_topk_scratch_chunks.restype = I
-    lib.rc2_stream_topk_scratch_chunks.argtypes = [I]
-    return lib
+    """The library, its argument types declared once at load."""
+    global _LIB
+    if _LIB is None:
+        lib = kernels.load_library("stream_topk")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rc2_stream_topk.restype = I
+        lib.rc2_stream_topk.argtypes = [P, P, I, I] + [P] * 6 + [I] * 9 + [P] * 5
+        lib.rc2_stream_topk_constants.restype = I
+        lib.rc2_stream_topk_constants.argtypes = [P, I]
+        lib.rc2_stream_topk_scratch_chunks.restype = I
+        lib.rc2_stream_topk_scratch_chunks.argtypes = [I]
+        lib.rc2_stream_topk_float_stages.restype = I
+        lib.rc2_stream_topk_float_stages.argtypes = [I] * 6
+        _LIB = lib
+    return _LIB
 
 
 def library_constants() -> Tuple[int, ...]:
     """The library's own planner constants, in the order of
     :data:`CONSTANTS` (builds the library)."""
-    buf = (ctypes.c_int * 32)()
-    n = _lib().rc2_stream_topk_constants(ctypes.cast(buf, ctypes.c_void_p), 32)
+    buf = (ctypes.c_int * 64)()
+    n = _lib().rc2_stream_topk_constants(ctypes.cast(buf, ctypes.c_void_p), 64)
     return tuple(buf[:n])
 
 
@@ -294,13 +309,14 @@ def stream_topk(
     mode = 0 if emb.dtype != torch.int8 else (2 if two_pass else 1)
     lib = _lib()
     dev = q.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    pl = plan(B, two_pass, mode != 0, N, sms)
-    scratch = B * lib.rc2_stream_topk_scratch_chunks(pl.n_chunks) * k_eff
-    cand_v = torch.empty(scratch, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(scratch, dtype=torch.int32, device=dev)
-    out_v = torch.empty((B, k_eff), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k_eff), dtype=torch.int32, device=dev)
+    pl = plan(B, two_pass, mode != 0, N, sm_count(dev), k_eff, emb.element_size())
+    cut = pl.cut
+    # one buffer for the chunks' candidate lists and the merge levels'
+    # (values, then rows) and one for the result
+    n_cand = B * scratch_chunks(pl.n_chunks) * k_eff
+    cand = torch.empty(2 * n_cand, dtype=torch.float32, device=dev)
+    out = torch.empty((2, B, k_eff), dtype=torch.float32, device=dev)
+    out_v, out_i = out[0], out[1].view(torch.int32)
     # the residual bias as [n_codes, B]: the four lanes that hold one row's
     # neighbouring queries then read one sector
     qc_t = None if qc is None else qc.t().contiguous()
@@ -311,9 +327,10 @@ def stream_topk(
     rc = lib.rc2_stream_topk(
         q.data_ptr(), emb.data_ptr(), _KINDS[emb.dtype], mode, ptr(q_scale),
         ptr(q_scale_lo), ptr(row_scale), ptr(assign), ptr(qc_t), ptr(mask), B, N, D,
-        k_eff, pl.query_tile, pl.rows_per_chunk, pl.n_chunks, cand_v.data_ptr(),
-        cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        k_eff, pl.query_tile, pl.rows_per_chunk, pl.n_chunks,
+        cut.box_rows if cut else 0, cut.blocks_per_sm if cut else 0,
+        cand.data_ptr(), cand.data_ptr() + 4 * n_cand, out_v.data_ptr(),
+        out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check_launch(lib, rc, "stream_topk")
     stream_topk.launches += 1

@@ -17,13 +17,14 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -51,10 +52,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(src: Path) -> List[Path]:
+    """``src`` and every header of ``csrc/`` it includes with quotes,
+    directly or through another such header."""
+    seen, todo = [], [src]
+    while todo:
+        f = todo.pop()
+        if f in seen or not f.exists():
+            continue
+        seen.append(f)
+        todo += [f.parent / inc for inc in _INCLUDE.findall(f.read_text())]
+    return seen
+
+
 def _build(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    # rebuilt when the source or a header it includes is newer
+    newest = max(f.stat().st_mtime for f in source_files(src))
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

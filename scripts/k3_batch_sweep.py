@@ -7,7 +7,8 @@ Runs ``rag_challenge_2_tpu_torch.ops.stream_topk.stream_topk`` on the card
 over a random int8 store of ``--rows`` x ``--dim`` codes with per-row
 scales, k = 30, for 1-pass batches from 1 to 128 and 2-pass batches from 4
 to 64.  Each time is the median of 25 CUDA-event timings with the L2 cache
-flushed before each.  Per batch it prints the planner's regime and query
+flushed and the device parked behind a spin before each (so the host has
+queued the launch before the device reaches it).  Per batch it prints the planner's regime and query
 tile and the time, then one JSON line with all of them.  It takes the
 package from the checkout it sits in, so two checkouts compare side by
 side in one session.  It needs a CUDA card.
@@ -17,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
 from pathlib import Path
 
@@ -25,25 +25,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 ONE_PASS = (1, 4, 16, 17, 24, 32, 48, 64, 65, 127, 128)
 TWO_PASS = (4, 8, 9, 16, 32, 33, 64)
-
-
-def cuda_ms(fn, flush, reps=25, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
 
 
 def main(argv=None):
@@ -59,6 +40,7 @@ def main(argv=None):
         sys.exit("k3_batch_sweep: no CUDA card")
     from rag_challenge_2_tpu_torch.ops import stream_topk as sk
     from rag_challenge_2_tpu_torch.ops.quant import quantize_query_2pass, quantize_rows
+    from rag_challenge_2_tpu_torch.utils.timing import cuda_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -39,8 +39,8 @@ def _untied_rows_equal(kv, ki, pv, pi, tol=1e-4):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,D,k", [
     (8, 10240, 1024, 30), (3, 1000, 64, 7), (8, 300, 20, 5), (1, 5, 32, 20),
-    (9, 70 * 256 + 3, 32, 64),        # two merge levels, two query groups
-    (2, 1_100_000, 16, 10),           # three merge levels
+    (9, 70 * 256 + 3, 32, 64),        # the 16-query tile, k = 64
+    (2, 1_100_000, 16, 10),           # many tiles per block
 ])
 def test_k1_matches_plain(dev, dtype, B, N, D, k):
     g = torch.Generator(device="cpu").manual_seed(N + D)
@@ -512,6 +512,176 @@ def test_k3_int8_masks_ties_and_misaligned_view(dev, mode, B):
 
 
 def test_k3_planner_constants_match_the_library(dev):
-    from rag_challenge_2_tpu_torch.ops.stream_topk import CONSTANTS, library_constants
+    from rag_challenge_2_tpu_torch.ops import stream_topk as sk
 
-    assert library_constants() == CONSTANTS
+    assert sk.library_constants() == sk.CONSTANTS
+    lib = sk._lib()
+    for n in (1, 63, 64, 65, 132, 264):
+        assert lib.rc2_stream_topk_scratch_chunks(n) == sk.scratch_chunks(n)
+    from rag_challenge_2_tpu_torch.ops import float_scan as fs
+
+    for qt in (8, 64, 96, 128):
+        for bf16 in (0, 1):
+            rows = fs.tile_rows(qt)
+            assert lib.rc2_stream_topk_float_stages(qt, fs.TILES[qt][0], rows, bf16, 30, 1) == \
+                fs.stages_for(qt, rows, 2 if bf16 else 4, 30, 1)
+
+
+# ---- scan_float: K1 and K3's f32 / bf16 forms (one kernel, two contracts) --
+
+def test_k1_planner_constants_match_the_library(dev):
+    from rag_challenge_2_tpu_torch.ops import float_scan as fs
+    from rag_challenge_2_tpu_torch.ops.dense_topk import _lib, library_constants
+
+    assert library_constants() == fs.FLOAT_CONSTANTS
+    lib = _lib()
+    for qt, (tq, _, _) in fs.TILES.items():
+        for bf16 in (0, 1):
+            for k in (1, 30, 64):
+                for bps in (1, 2):
+                    rows = fs.tile_rows(qt)
+                    assert lib.rc2_dense_topk_stages(qt, tq, rows, bf16, k, bps) == \
+                        fs.stages_for(qt, rows, 2 if bf16 else 4, k, bps)
+
+
+def _float_inputs(B, N, D, dtype, g, dev, clustered=True):
+    """Unit rows around a few centres (near ties occur) and queries near
+    rows, on the card."""
+    cent = torch.randn(24, D, generator=g)
+    x = cent[torch.randint(0, 24, (N,), generator=g)] + 0.4 * torch.randn(N, D, generator=g)
+    x = x / x.norm(dim=1, keepdim=True)
+    q = x[torch.randint(0, N, (B,), generator=g)] + 0.05 * torch.randn(B, D, generator=g)
+    q = q / q.norm(dim=1, keepdim=True)
+    return q.to(dev), x.to(dev, dtype)
+
+
+def _rows_equal_where_untied(kv, ki, plain, k, tol=1e-4):
+    """Values within ``tol`` of the plain version's and rows equal wherever
+    the plain value is apart from both neighbours by more than 2 tol.  The
+    plain version is asked for one more than k, so the last place is held
+    against the value just below the cut too."""
+    pv, pi = plain(k + 1)
+    n = kv.shape[1]
+    torch.testing.assert_close(kv, pv[:, :n], rtol=0, atol=tol)
+    step = (pv[:, 1:] - pv[:, :-1]).abs()
+    inf = torch.full_like(pv[:, :1], float("inf"))
+    gap = torch.minimum(torch.cat([inf, step], 1), torch.cat([step, inf], 1))[:, :n]
+    untied = gap > 2 * tol
+    assert torch.equal(ki[untied], pi[:, :n][untied])
+
+
+def _k1_check(q, emb, k, mask=None):
+    kv, ki = dense_topk_fused(q, emb, k, mask)
+    torch.cuda.synchronize()
+    assert kv.shape == (q.shape[0], min(k, emb.shape[0])) and ki.dtype == torch.int32
+    _rows_equal_where_untied(kv, ki, lambda kk: dense_topk_plain(q, emb, kk, mask), k)
+    return kv, ki
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 33, 64])
+@pytest.mark.parametrize("N", [1, 255, 256, 257, 4099, 70_001])
+def test_k1_batches_and_row_counts(dev, dtype, B, N):
+    """Every query tile (8 / 16 / 32 / 64) either side of its edge, stores
+    of one row, one tile less / exactly / more one row, ragged, and large
+    enough for several tiles per block; with and without a mask."""
+    g = torch.Generator(device="cpu").manual_seed(B * 131 + N)
+    q, emb = _float_inputs(B, N, 64, dtype, g, dev)
+    _k1_check(q, emb, 30)
+    _k1_check(q, emb, 30, (torch.rand(N, generator=g) > 0.4).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 64])
+@pytest.mark.parametrize("D", [32, 1000, 1024])
+@pytest.mark.parametrize("B", [4, 20])
+def test_k1_widths_and_k(dev, dtype, k, D, B):
+    """D below one 128-byte chunk, D = 1000 (a ragged last chunk; bf16 rows
+    of 2000 bytes are 16-byte aligned, f32 rows too) and the main width."""
+    g = torch.Generator(device="cpu").manual_seed(D + k + B)
+    q, emb = _float_inputs(B, 3001, D, dtype, g, dev)
+    _k1_check(q, emb, k, (torch.rand(3001, generator=g) > 0.2).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 50, 7])
+def test_k1_rows_the_threads_load(dev, dtype, D):
+    """Rows that TMA does not take: a store view that does not start on 16
+    bytes, and row widths that are no multiple of 16 bytes."""
+    g = torch.Generator(device="cpu").manual_seed(D)
+    N = 2500
+    q, emb = _float_inputs(9, N + 1, D, dtype, g, dev)
+    view = emb.reshape(-1)[1:1 + N * D].view(N, D)
+    assert view.data_ptr() % 16 != 0 or D % 8 != 0
+    _k1_check(q, view, 30, (torch.rand(N, generator=g) > 0.3).to(dev))
+    _k1_check(q, emb[:N].contiguous(), 30)
+
+
+@pytest.mark.parametrize("B", [3, 40])
+def test_k1_all_masked_ties_across_chunks_and_k_above_n(dev, B):
+    g = torch.Generator(device="cpu").manual_seed(B)
+    q, emb = _float_inputs(B, 9000, 48, torch.float32, g, dev)
+    # all masked: NEG_INF values, the lowest rows first
+    kv, ki = _k1_check(q, emb, 30, torch.zeros(9000, dtype=torch.bool, device=dev))
+    assert (kv == -3.0e38).all()
+    assert torch.equal(ki, torch.arange(30, device=dev, dtype=torch.int32).expand(B, 30))
+    # fewer eligible rows than k: the masked rows follow, lowest first
+    few = torch.zeros(9000, dtype=torch.bool, device=dev)
+    few[torch.tensor([7, 4000, 8999], device=dev)] = True
+    kv, ki = _k1_check(q, emb, 10, few)
+    assert set(ki[0, :3].tolist()) == {7, 4000, 8999}
+    assert ki[0, 3:].tolist() == [0, 1, 2, 3, 4, 5, 6]
+    # every row three times, 3,000 rows apart: the copies of one row lie in
+    # different blocks' chunks, and equal values come in ascending row order
+    emb3 = emb[:3000].repeat(3, 1).contiguous()
+    kv, ki = dense_topk_fused(q, emb3, 30)
+    pv, pi = dense_topk_plain(q, emb3, 30)
+    assert torch.equal(ki, pi)
+    same = kv[:, 1:] == kv[:, :-1]
+    assert bool(same.any()) and bool((ki[:, 1:][same] > ki[:, :-1][same]).all())
+    # k > N
+    kv, ki = _k1_check(q, emb[:20].contiguous(), 64)
+    assert kv.shape == (B, 20)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("B", [16, 17, 64, 65, 96, 97, 128])
+@pytest.mark.parametrize("N,D,k", [(1, 64, 5), (255, 64, 30), (257, 32, 64), (9001, 1000, 30),
+                                   (40_000, 128, 1), (1700, 1024, 30)])
+def test_k3_float_query_tile_boundaries(dev, mode, B, N, D, k):
+    """K3's f32 / bf16 forms either side of each query tile's edge, on short,
+    ragged and multi-tile stores, and on one routed slot of the deployment
+    (1,700 full-width rows: a block owns less than a tile); masked rows
+    never enter."""
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    g = torch.Generator(device="cpu").manual_seed(B + N + D)
+    q, emb = _float_inputs(B, N, D, torch.float32 if mode == "f32" else torch.bfloat16,
+                           g, dev)
+    mask = (torch.rand(N, generator=g) > 0.3).to(dev)
+    before = stream_topk.regime_launches["float"]
+    for m in (None, mask):
+        kv, ki = stream_topk(q, emb, k, m)
+        assert kv.shape == (B, min(k, N)) and ki.dtype == torch.int32
+        _rows_equal_where_untied(kv, ki, lambda kk: stream_topk_plain(q, emb, kk, m), k)
+    torch.cuda.synchronize()
+    assert stream_topk.regime_launches["float"] == before + 2
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_k3_float_misaligned_view_and_ties(dev, mode):
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    N, D = 2100, 64
+    q, emb = _float_inputs(70, N + 1, D, torch.float32 if mode == "f32" else torch.bfloat16,
+                           g, dev)
+    view = emb.reshape(-1)[1:1 + N * D].view(N, D)
+    kv, ki = stream_topk(q, view, 30)
+    _rows_equal_where_untied(kv, ki, lambda kk: stream_topk_plain(q, view, kk), 30)
+    emb3 = emb[:700].repeat(3, 1).contiguous()
+    kv, ki = stream_topk(q, emb3, 30)
+    pv, pi = stream_topk_plain(q, emb3, 30)
+    assert torch.equal(ki, pi)
+    same = kv[:, 1:] == kv[:, :-1]
+    assert bool(same.any()) and bool((ki[:, 1:][same] > ki[:, :-1][same]).all())

@@ -315,13 +315,55 @@ def test_plan_reads_the_store_once_per_int8_call(N, B, two_pass):
 
 @pytest.mark.parametrize("B,passes", [(1, 1), (64, 1), (65, 2), (128, 2)])
 def test_plan_keeps_the_float_forms_first_design(B, passes):
-    """f32 / bf16: 64-row query groups, each reading the store, about two
-    blocks per SM between them."""
+    """f32 / bf16: the first design read the store ``passes`` times (once
+    per 64 queries); the query tile now holds the whole batch, so every
+    batch reads it once, on at most two blocks per SM."""
     p = sk.plan(B, False, False, 1_000_000, 132)
-    assert (p.regime, p.query_tile, p.tile_rows, p.store_passes) == ("float", 64, 64, passes)
-    assert p.n_chunks <= -(-2 * 132 // passes)
+    assert p.regime == "float" and p.store_passes == 1 <= passes
+    assert p.query_tile >= B and p.cut.query_tile == p.query_tile
+    assert p.n_chunks <= 2 * 132
 
 
 def test_planner_constants_are_the_ones_the_plan_uses():
-    assert sk.CONSTANTS == (64, 64, 2, 128, 16, 2, 1, 64, 128, 256, 16)
+    assert sk.CONSTANTS[:8] == (128, 16, 2, 1, 64, 128, 256, 16)
+    assert sk.CONSTANTS[8:] == fs.FLOAT_CONSTANTS
+    assert fs.FLOAT_CONSTANTS[-6:] == (512, 256, 256, 256, 128, 128)
     assert set(sk.stream_topk.regime_launches) == set(sk.REGIMES)
+
+
+# ---- the f32 / bf16 arm of the planner (scan_float's grid) ------------------
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+from rag_challenge_2_tpu_torch.ops import float_scan as fs  # noqa: E402
+from tests.test_torch_topk import check_float_plan  # noqa: E402
+
+
+@settings(max_examples=300, deadline=None)
+@given(B=st.integers(1, 128), N=st.one_of(st.integers(1, 5000), st.integers(1, 12_000_000)),
+       k=st.integers(1, 64), elt=st.sampled_from([2, 4]),
+       sms=st.sampled_from([108, 114, 132]))
+def test_float_plan_sweep(B, N, k, elt, sms):
+    p = sk.plan(B, False, False, N, sms, k, elt)
+    assert p.regime == "float"
+    assert (p.query_tile, p.tile_rows, p.rows_per_chunk, p.n_chunks) == (
+        p.cut.query_tile, p.cut.tile_rows, p.cut.rows_per_chunk, p.cut.n_chunks)
+    check_float_plan(p.cut, B, N, k, elt, sms)
+
+
+@pytest.mark.parametrize("B,tile,rows", [
+    (8, 8, 512), (16, 16, 256), (17, 32, 256), (64, 64, 256), (65, 96, 128),
+    (96, 96, 128), (97, 128, 128), (127, 128, 128), (128, 128, 128)])
+def test_float_plan_query_tile_at_1m(B, tile, rows):
+    """The query tile follows the batch (B = 65 pays for 96, once), and a
+    1M-row store fills a persistent grid of whole tiles."""
+    p = sk.plan(B, False, False, 1_000_000, 132, 30, 4).cut
+    assert (p.query_tile, p.tile_rows) == (tile, rows)
+    assert p.box_rows == p.tile_rows and p.rows_per_chunk % p.tile_rows == 0
+    assert 0.9 * p.blocks_per_sm * 132 <= p.n_chunks <= p.blocks_per_sm * 132
+
+
+def test_scratch_chunks_cover_the_merge_levels():
+    for n in (1, 63, 64, 65, 132, 264):
+        assert sk.scratch_chunks(n) == n + -(-n // 64)

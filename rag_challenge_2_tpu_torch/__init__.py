@@ -14,8 +14,12 @@ Layout (bottom-up):
                 centroid-residual stores, BM25 scoring, hit fusion
     index/      index dataclasses, host builder, npz persistence,
                 quantize_index, IVF
-    retrieval/  routing and the query engine (basic method, hybrid BM25,
-                IVF probe arm, f32/bf16/int8 stores, search_many)
+    retrieval/  routing, graph traversal (ssg, triangulation), the query
+                engine (all four methods, hybrid BM25, IVF probe arm,
+                f32/bf16/int8 stores, search_many, materialize_details),
+                the standalone BM25 retriever
+    serving/    the micro-batcher over search_many
+    eval/       the chunk-to-chunk similarity matrix
     models/     the transformer encoder (inference)
     csrc/       the hand-written CUDA kernels for sm_90a
 """

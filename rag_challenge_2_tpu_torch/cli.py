@@ -2,13 +2,18 @@
 
     python -m rag_challenge_2_tpu_torch query --index PATH --company NAME \
         --question TEXT [--use-bm25] [--top-n 5] [--params ENCODER.npz] \
+        [--method basic|ssg|triangulation|hybrid_expansion \
+         [--max-hops 4] [--neighbor-k 30]] \
         [--use-ivf [--ivf-nprobe 8] [--cluster-order]] \
         [--quantize-int8] [--scan-rt RT] [--device cuda|cpu]
 
 Mirrors the reference's ``main.py query``: load the index, embed the
 question with the in-repo encoder (random weights from a seed unless a
 ``save_params`` npz is given), run the routed search and print the top
-chunks with their scores.  With ``--use-ivf`` the dense arm probes an IVF
+chunks with their scores.  With a traversal ``--method`` one more line
+follows: the JSON of ``QueryEngine.materialize_details`` (per-anchor
+traversal records and, for ``hybrid_expansion``, each method's
+contribution).  With ``--use-ivf`` the dense arm probes an IVF
 index: the ``<index>.ivf.npz`` sidecar when it was built from this exact
 index file (by fingerprint), else one is built on the device and saved.
 ``--quantize-int8`` serves from the int8 variant of the index
@@ -20,6 +25,7 @@ index file (by fingerprint), else one is built on the device and saved.
 from __future__ import annotations
 
 import argparse
+import json
 from pathlib import Path
 from typing import List, Optional
 
@@ -46,17 +52,22 @@ def query(args: argparse.Namespace) -> List[str]:
     eng = QueryEngine(idx, meta)
     if args.use_ivf:
         eng = _with_ivf(eng, Path(args.index), args)
-    cfg = SearchConfig(method="basic", top_n=args.top_n, top_k=args.top_n,
+    cfg = SearchConfig(method=args.method, top_n=args.top_n, top_k=args.top_n,
+                       max_hops=args.max_hops, neighbor_k=args.neighbor_k,
                        use_bm25=args.use_bm25, use_ivf=args.use_ivf,
                        ivf_nprobe=args.ivf_nprobe, scan_rt=args.scan_rt)
     q_emb = model.embed_device([args.question])
-    cands = eng.search(q_emb, args.company, args.question, cfg=cfg,
-                       query_texts=[args.question])
-    return [
+    cands, details = eng.search(q_emb, args.company, args.question, cfg=cfg,
+                                query_texts=[args.question], with_details=True)
+    lines = [
         f"[{r['distance']:.4f}] {r['source_sha1']} p{r['page']} "
         f"hits={r['hit_count']} methods={r['method_count']}: {r['text'][:80]}"
         for r in eng.materialize(cands, cfg)
     ]
+    if args.method != "basic":
+        lines.append(json.dumps(eng.materialize_details(details, cfg),
+                                ensure_ascii=False))
+    return lines
 
 
 def _with_ivf(eng, index_path: Path, args: argparse.Namespace):
@@ -85,6 +96,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     q.add_argument("--company", required=True)
     q.add_argument("--question", required=True)
     q.add_argument("--top-n", type=int, default=5)
+    q.add_argument("--method", default="basic",
+                   choices=["basic", "ssg", "triangulation", "hybrid_expansion"])
+    q.add_argument("--max-hops", type=int, default=4,
+                   help="hops per traversal (ssg, triangulation, hybrid_expansion)")
+    q.add_argument("--neighbor-k", type=int, default=30,
+                   help="neighbours scored per hop")
     q.add_argument("--use-bm25", action="store_true",
                    help="fuse sparse BM25 hits into the dense results")
     q.add_argument("--params", default=None,

@@ -441,9 +441,10 @@ __global__ void __launch_bounds__(kThreads, I8Tile<kQN>::kBlocksPerSM)
   constexpr int kValues = kNL * 2 * 2;              // epilogue values per thread
   static_assert(kValues <= 64, "one pending bit per epilogue value");
 
+  // aligned to 1024 by an offset, not by integer arithmetic on the pointer,
+  // so that the accesses keep the shared address space (LDS / STS)
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const I8Smem L = i8_smem(kQN, kTwoPass, p.D, p.k, p.n_stages);
   float* top_v = reinterpret_cast<float*>(smem + L.top_v);
   int* top_i = reinterpret_cast<int*>(smem + L.top_i);

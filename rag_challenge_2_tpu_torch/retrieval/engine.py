@@ -1,16 +1,27 @@
-"""The query engine: routed hybrid retrieval, basic method.
+"""The query engine: routed hybrid retrieval, all four methods.
 
-Port of ``rag_challenge_2_tpu/retrieval/engine.py`` for ``method="basic"``
-with or without BM25 fusion.  One request fans out over (query, routed
-document) pairs; dense candidates come per routed document slot from
-``ops.topk.dense_topk`` (kernel K1 for f32 / bf16 stores and up to 64
-queries, kernel K3 for int8 stores and larger batches), or with
-``use_ivf`` from one IVF probe search over all pairs
+Port of ``rag_challenge_2_tpu/retrieval/engine.py``.  One request fans out
+over (query, routed document) pairs; dense candidates come per routed
+document slot from ``ops.topk.dense_topk`` (kernel K1 for f32 / bf16
+stores and up to 64 queries, kernel K3 for int8 stores and larger
+batches), or with ``use_ivf`` from one IVF probe search over all pairs
 (``index.ivf.ivf_search``: kernels K4 and K2), BM25 candidates from
 ``ops.bm25.bm25_topk`` (kernel K2 in front), and ``ops.aggregate.fuse_hits``
 applies the reference's bonuses.  ``search_many`` stacks the queries of R
 requests that share a route, so each routed slot of the store is read
 once per micro-batch, and fuses per request.
+
+Methods (``method=``):
+  * ``basic``            per-(query, doc) exact top-k
+  * ``ssg``              anchor top-1 + greedy chunk-similarity hops
+  * ``triangulation``    anchor top-1 + centroid-scored hops
+  * ``hybrid_expansion`` basic top-50 ∪ SSG(top-10 anchors) ∪
+                         Tri(top-20 anchors)
+
+The traversal methods walk per routed document slot
+(``retrieval/traversal.py``): all walkers of a slot share the slot's rows,
+so on an f32 / bf16 store every hop is one ``dense_topk`` call (K1 up to
+64 walkers, K3 above).
 
 Queries are padded to ``max_queries`` and routed documents to
 ``max_docs`` like the reference, so the fused hit lists keep its shapes;
@@ -34,14 +45,24 @@ from ..index.ivf import (IVFIndex, build_ivf, cluster_order_index,
 from ..index.schema import CorpusIndex, CorpusMeta
 from ..ops.aggregate import FusedCandidates, fuse_hits
 from ..ops.topk import NEG_INF, dense_topk
+from .traversal import (CAND_RECORD, TraversalResult, emit_hits, traverse,
+                        traverse_windowed)
 
 METHOD_IDS = {"basic": 0, "ssg": 1, "triangulation": 2, "bm25": 3}
+METHODS = ("basic", "ssg", "triangulation", "hybrid_expansion")
 
-_NOT_PORTED = {
-    "ssg": "graph traversal is not ported yet (ROADMAP A.10)",
-    "triangulation": "graph traversal is not ported yet (ROADMAP A.10)",
-    "hybrid_expansion": "graph traversal is not ported yet (ROADMAP A.10)",
-}
+# hybrid-expansion shape constants
+HYBRID_BASIC_K = 50
+HYBRID_SSG_ANCHORS = 10
+HYBRID_TRI_ANCHORS = 20
+
+# The JAX engine copies each document's rows for its windowed traversal and
+# budgets those copies with this cap; its walkers come back in (slot, query,
+# anchor) order when a window fits the cap and in (query, slot, anchor)
+# order otherwise.  The port walks views of the store whenever the corpus
+# is windowed and copies nothing: the cap is kept only because it decides
+# that order, which ``materialize_details`` shows.
+TRAVERSAL_WINDOW_COPY_CAP = 4 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,13 +89,6 @@ class SearchConfig:
     use_ivf: bool = False
     ivf_nprobe: int = 8
     scan_rt: Optional[float] = None
-
-
-def _check_supported(cfg: SearchConfig) -> None:
-    if cfg.method in _NOT_PORTED:
-        raise NotImplementedError(f"method={cfg.method!r}: {_NOT_PORTED[cfg.method]}")
-    if cfg.method != "basic":
-        raise ValueError(f"unknown method {cfg.method!r}")
 
 
 def _bm25_texts(query_texts, question: str, max_q: int) -> List[str]:
@@ -106,9 +120,10 @@ Block = Tuple[torch.Tensor, ...]     # (rows, sims, qids, mids, valid)
 
 @torch.inference_mode()
 def dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
-               window: int = 0) -> Block:
+               window: int = 0, k: Optional[int] = None) -> Block:
     """Per-(query, doc) dense top-k (kernel K1, or K3 for an int8 store or
-    more than 64 queries), ``[Q*M, k]`` with p = q*M + m.
+    more than 64 queries), ``[Q*M, k]`` with p = q*M + m; ``k`` defaults
+    to ``cfg.top_k``.
 
     Windowed corpora (``window > 0``: docs are contiguous row ranges)
     score each routed slot's rows ``emb[start : start + len]`` alone, so
@@ -120,7 +135,7 @@ def dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
     Q = q.shape[0]
     M, N = req.doc_masks.shape
     dev = q.device
-    k = min(cfg.top_k, N)
+    k = min(cfg.top_k if k is None else k, N)
     vals = torch.full((Q, M, k), NEG_INF, dtype=torch.float32, device=dev)
     rows = torch.zeros((Q, M, k), dtype=torch.int32, device=dev)
     windowed = window > 0 and window >= k and M * window <= 2 * N
@@ -157,10 +172,11 @@ def _qid_pair(Q: int, M: int, dev) -> torch.Tensor:
 
 @torch.inference_mode()
 def ivf_hits(index: CorpusIndex, ivf: IVFIndex, req: Request,
-             cfg: SearchConfig, window: int = 0) -> Block:
+             cfg: SearchConfig, window: int = 0, k: Optional[int] = None) -> Block:
     """Per-(query, doc) IVF probe top-k over all ``Q*M`` pairs in one
     :func:`~..index.ivf.ivf_search` (kernels K4 and K2), ``[Q*M, k_eff]``
-    with p = q*M + m and ``k_eff = min(top_k, nprobe * max_list)``.
+    with p = q*M + m and ``k_eff = min(k, nprobe * max_list)``; ``k``
+    defaults to ``cfg.top_k``.
 
     The routing mode is the cheapest one the index allows, in the
     reference's order: doc equality on a cluster-ordered corpus
@@ -173,7 +189,7 @@ def ivf_hits(index: CorpusIndex, ivf: IVFIndex, req: Request,
     q_pair = q.repeat_interleave(M, dim=0)
     qv_rep = req.q_valid.repeat_interleave(M)
     dv = torch.as_tensor(req.doc_valid, dtype=torch.bool, device=dev)
-    kw = dict(k=cfg.top_k, nprobe=cfg.ivf_nprobe)
+    kw = dict(k=cfg.top_k if k is None else k, nprobe=cfg.ivf_nprobe)
     if req.slot_doc is not None and ivf.cluster_doc is not None:
         sd = torch.as_tensor(req.slot_doc, dtype=torch.int32, device=dev).repeat(Q)
         pd = torch.where(qv_rep, sd, torch.full_like(sd, -1))
@@ -249,25 +265,139 @@ def fuse_blocks(index: CorpusIndex, blocks: Sequence[Block],
                      top_n=cfg.top_n, mode=cfg.fuse_mode)
 
 
+def _blank_traversal(A: int, cfg: SearchConfig, dev) -> TraversalResult:
+    """What an unrouted slot's walkers return: no path."""
+    H, R = cfg.max_hops, min(CAND_RECORD, cfg.neighbor_k + 1)
+    return TraversalResult(
+        path=torch.full((A, H + 1), -1, dtype=torch.int32, device=dev),
+        valid=torch.zeros((A, H + 1), dtype=torch.bool, device=dev),
+        hop_score=torch.zeros((A, H + 1), dtype=torch.float32, device=dev),
+        cand_ids=torch.full((A, H, R), -1, dtype=torch.int32, device=dev),
+        cand_scores=torch.zeros((A, H, R), dtype=torch.float32, device=dev))
+
+
+@torch.inference_mode()
+def run_traverse(index: CorpusIndex, req: Request, cfg: SearchConfig,
+                 window: int, anchors_pm: torch.Tensor, mode: str,
+                 n_requests: int = 1):
+    """Traverse from ``[Q*M, n]`` global anchor rows (-1 = inactive).
+
+    The ``Q*n`` walkers of a routed slot share its rows, so each slot is
+    one traversal whose hops are ``dense_topk`` calls (f32 / bf16 stores):
+    over the view ``emb[start : start + len]`` when the corpus is windowed,
+    else over the whole store under the slot's ``[N]`` row mask.  Unrouted
+    slots are skipped on the host.
+
+    Returns ``(res, qids [A], qv [A, D])`` over ``A = M*Q*n`` walkers, in
+    the JAX engine's order: (m, q, n) when the corpus is windowed and one
+    window fits :data:`TRAVERSAL_WINDOW_COPY_CAP`, (q, m, n) otherwise.
+    With ``n_requests = R`` stacked requests (``Q = R*Q_r``)
+    the order is request-major, (r, m, q_r, n) or (r, q_r, m, n), so each
+    request's walkers are one contiguous slice in single-request order."""
+    q, emb, scale = req.q, index.emb, index.emb_scale
+    Q, D = q.shape
+    M = req.doc_masks.shape[0]
+    n = anchors_pm.shape[1]
+    dev = q.device
+    slot_major = (window > 0 and window * D * emb.element_size()
+                  <= TRAVERSAL_WINDOW_COPY_CAP)
+    a_g = anchors_pm.reshape(Q, M, n).transpose(0, 1).reshape(M, Q * n)
+    qv_g = q[:, None, :].expand(Q, n, D).reshape(Q * n, D)
+    kw = dict(max_hops=cfg.max_hops, neighbor_k=cfg.neighbor_k, mode=mode,
+              approx_rt=cfg.scan_rt)
+    parts = []
+    for m in range(M):
+        if not req.doc_valid[m]:
+            parts.append(_blank_traversal(Q * n, cfg, dev))
+        elif window > 0:
+            parts.append(traverse_windowed(
+                emb, a_g[m : m + 1], qv_g[None], req.win_start[m : m + 1],
+                req.win_len[m : m + 1], scale, window=window, **kw))
+        else:
+            parts.append(traverse(emb, a_g[m], qv_g, req.doc_masks[m], scale, **kw))
+    R, Qr = n_requests, Q // n_requests
+    # [M, R, Qr, n, ...] -> request-major, slot- or query-major inside
+    order = (1, 0, 2, 3) if slot_major else (1, 2, 0, 3)
+
+    def arrange(x):                     # x: [M, Q*n, ...]
+        x = x.reshape(M, R, Qr, n, *x.shape[2:])
+        return x.permute(*order, *range(4, x.dim())).reshape(M * Q * n, *x.shape[4:])
+
+    res = TraversalResult(*(arrange(torch.stack(xs)) for xs in zip(*parts)))
+    qids = arrange(torch.arange(Q, dtype=torch.int32, device=dev)
+                   .repeat_interleave(n).expand(M, Q * n))
+    return res, qids, arrange(qv_g.expand(M, Q * n, D))
+
+
+def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
+          ivf: Optional[IVFIndex], n_requests: int = 1,
+          ) -> Tuple[List[Block], Dict]:
+    """Every arm's hit block for one request, or for ``n_requests`` stacked
+    ones (each block is then request-major), and the traversal details."""
+    if cfg.method not in METHODS:
+        raise ValueError(f"unknown method {cfg.method!r}")
+    if cfg.use_ivf and ivf is None:
+        raise ValueError("SearchConfig.use_ivf requires an IVFIndex "
+                         "(QueryEngine.build_ivf() first)")
+
+    def basic_block(k: int) -> Block:
+        # use_ivf only serves the basic block: the anchors' top-1 and the
+        # hops stay exact
+        if cfg.use_ivf:
+            return ivf_hits(index, ivf, req, cfg, window, k)
+        return dense_hits(index, req, cfg, window, k)
+
+    def expansion(anchors_pm: torch.Tensor, mode: str):
+        res, qids_t, qv_flat = run_traverse(index, req, cfg, window, anchors_pm,
+                                            mode, n_requests)
+        rows, sims = emit_hits(index.emb, qv_flat, res, index.emb_scale)
+        mids = torch.full(rows.shape, METHOD_IDS[mode], dtype=torch.int32,
+                          device=rows.device)
+        return (rows, sims, qids_t[:, None].expand(rows.shape), mids,
+                res.valid), res, qids_t
+
+    blocks: List[Block] = []
+    details: Dict = {}
+    if cfg.method == "basic":
+        blocks.append(basic_block(cfg.top_k))
+    elif cfg.method in ("ssg", "triangulation"):
+        # anchor = top-1 per (query, doc)
+        rows, _, _, _, ok = dense_hits(index, req, cfg, window, 1)
+        anchor = torch.where(ok, rows, torch.full_like(rows, -1))[:, :1]
+        block, res, qids_t = expansion(anchor, cfg.method)
+        blocks.append(block)
+        details["trav"] = res
+        details["trav_qids"] = qids_t
+    else:
+        rows, sims, qids, mids, ok = basic_block(HYBRID_BASIC_K)
+        blocks.append((rows, sims, qids, mids, ok))
+        anchors = torch.where(ok, rows, torch.full_like(rows, -1))
+        ssg_block, ssg_res, _ = expansion(anchors[:, :HYBRID_SSG_ANCHORS], "ssg")
+        tri_block, tri_res, _ = expansion(anchors[:, :HYBRID_TRI_ANCHORS],
+                                          "triangulation")
+        blocks += [ssg_block, tri_block]
+        details.update(basic_rows=rows, basic_ok=ok, basic_sims=sims,
+                       ssg=ssg_res, tri=tri_res)
+    if cfg.use_bm25 and req.q_terms is not None and index.sparse is not None:
+        blocks.append(bm25_hits(index, req, cfg, window))
+    return blocks, details
+
+
 def search_device(
     index: CorpusIndex, req: Request, cfg: SearchConfig, window: int = 0,
     ivf: Optional[IVFIndex] = None,
 ) -> Tuple[FusedCandidates, Dict]:
     """Full fan-out + aggregation for one request on ``index``'s device:
-    dense hits (IVF probe hits with ``use_ivf``), BM25 hits (with
-    ``use_bm25``), fusion.  Returns ``(fused_candidates, details)``;
-    ``details`` is empty for the basic method, as in the reference."""
-    _check_supported(cfg)
-    if cfg.use_ivf:
-        if ivf is None:
-            raise ValueError("SearchConfig.use_ivf requires an IVFIndex "
-                             "(QueryEngine.build_ivf() first)")
-        blocks = [ivf_hits(index, ivf, req, cfg, window)]
-    else:
-        blocks = [dense_hits(index, req, cfg, window)]
-    if cfg.use_bm25 and req.q_terms is not None and index.sparse is not None:
-        blocks.append(bm25_hits(index, req, cfg, window))
-    return fuse_blocks(index, blocks, cfg), {}
+    the method's dense and traversal arms (the basic block through the IVF
+    probe with ``use_ivf``), BM25 hits (with ``use_bm25``), fusion.
+
+    Returns ``(fused_candidates, details)``.  ``details`` is empty for the
+    basic method; for ``ssg`` / ``triangulation`` it holds ``trav`` (a
+    :class:`TraversalResult`) and ``trav_qids``, for ``hybrid_expansion``
+    ``basic_rows``, ``basic_ok``, ``basic_sims``, ``ssg`` and ``tri``:
+    the JAX engine's arrays in its order (see :func:`run_traverse`)."""
+    blocks, details = _arms(index, req, cfg, window, ivf)
+    return fuse_blocks(index, blocks, cfg), details
 
 
 def search_many_device(
@@ -277,32 +407,27 @@ def search_many_device(
     """R requests that share one route (the routing fields of ``reqs[0]``)
     in one pass.  Their padded queries are stacked ``[R*Q, D]``, so each
     routed slot of the store is read once for all of them (kernel K3 once
-    ``R*Q`` exceeds K1's 64 queries); fusion stays per request, so the
-    hit-count and method-diversity bonuses never mix across requests.
-    The results equal R :func:`search_device` calls."""
-    _check_supported(cfg)
-    if cfg.use_ivf and ivf is None:
-        raise ValueError("SearchConfig.use_ivf requires an IVFIndex "
-                         "(QueryEngine.build_ivf() first)")
+    ``R*Q`` exceeds K1's 64 queries) and a slot's walkers of all requests
+    hop together; fusion stays per request, so the hit-count and
+    method-diversity bonuses never mix across requests.  The results equal
+    R :func:`search_device` calls; details are not returned."""
+    R = len(reqs)
     Q = reqs[0].q.shape[0]
-    M = reqs[0].doc_masks.shape[0]
     terms = [r.q_terms for r in reqs]
     big = dataclasses.replace(
         reqs[0], q=torch.cat([r.q for r in reqs]),
         q_valid=torch.cat([r.q_valid for r in reqs]),
         q_terms=None if any(t is None for t in terms) else torch.cat(terms))
-    if cfg.use_ivf:
-        blocks = [ivf_hits(index, ivf, big, cfg, window)]
-    else:
-        blocks = [dense_hits(index, big, cfg, window)]
-    if cfg.use_bm25 and big.q_terms is not None and index.sparse is not None:
-        blocks.append(bm25_hits(index, big, cfg, window))
+    blocks, _ = _arms(index, big, cfg, window, ivf, n_requests=R)
     out = []
-    for r in range(len(reqs)):
-        sl = slice(r * Q * M, (r + 1) * Q * M)     # pairs p = (r*Q + q)*M + m
-        out.append(fuse_blocks(index, [
-            (rows[sl], sims[sl], qids[sl] - r * Q, mids[sl], ok[sl])
-            for rows, sims, qids, mids, ok in blocks], cfg))
+    for r in range(R):
+        # every block is request-major: request r is its r-th of R slices
+        parts = []
+        for rows, sims, qids, mids, ok in blocks:
+            L = rows.shape[0] // R
+            sl = slice(r * L, (r + 1) * L)
+            parts.append((rows[sl], sims[sl], qids[sl] - r * Q, mids[sl], ok[sl]))
+        out.append(fuse_blocks(index, parts, cfg))
     return out
 
 
@@ -519,7 +644,9 @@ class QueryEngine:
         with_details: bool = False,
     ) -> FusedCandidates:
         """Run the fan-out for one request of ``[B, D]`` query embeddings
-        (numpy or tensor)."""
+        (numpy or tensor).  ``with_details=True`` also returns the
+        observability dict of :func:`search_device`: feed it to
+        :meth:`materialize_details`."""
         req = self.prepare(query_embs, company, question, selected_years,
                            cfg, query_texts)
         cands, details = search_device(self.index, req, cfg, self.window,
@@ -603,4 +730,111 @@ class QueryEngine:
                 "method_count": int(nm[i]),
                 "rep_row": int(rep[i]),
             })
+        return out
+
+    def materialize_details(
+        self, details: Dict, cfg: SearchConfig, max_anchor_records: int = 200
+    ) -> Dict:
+        """The details of :func:`search_device` → the reference's payload
+        shapes: ``retrieval_details`` (per-anchor traversal records with
+        per-hop candidates, at most ``max_anchor_records`` of them) and, for
+        hybrid expansion, ``algorithm_contribution`` (per-method new-chunk
+        stats; ``new_only`` counts unique chunks)."""
+        out: Dict = {"retrieval_details": None, "algorithm_contribution": None}
+        if not details:
+            return out
+
+        def host(x):
+            return x.cpu().numpy()
+
+        def chunk_info(row: int) -> Dict:
+            d = int(self._doc_ids_np[row])
+            return {
+                "chunk_id": int(row),
+                "page": int(self._page_np[row]),
+                "source_sha1": self.meta.docs[d].sha1,
+            }
+
+        def traversal_info(res: TraversalResult) -> List[Dict]:
+            path, hop_score = host(res.path), host(res.hop_score)
+            cand_ids, cand_scores = host(res.cand_ids), host(res.cand_scores)
+            infos = []
+            for a in range(path.shape[0]):
+                if path[a, 0] < 0:
+                    continue
+                if len(infos) >= max_anchor_records:
+                    break
+                p = [int(x) for x in path[a] if x >= 0]
+                hops = []
+                for h in range(path.shape[1] - 1):
+                    sel = int(path[a, h + 1])
+                    if sel < 0:
+                        break
+                    cands = [
+                        {
+                            "idx": int(cand_ids[a, h, j]),
+                            "score": float(cand_scores[a, h, j]),
+                            "selected": int(cand_ids[a, h, j]) == sel,
+                        }
+                        for j in range(cand_ids.shape[2])
+                        if cand_ids[a, h, j] >= 0
+                    ]
+                    hops.append({
+                        "hop_number": h + 1,
+                        "current_chunk": int(path[a, h]),
+                        "candidates": cands,
+                        "selected_idx": sel,
+                        "selected_score": float(hop_score[a, h + 1]),
+                    })
+                infos.append({
+                    "anchor": {"idx": int(path[a, 0]), "score": float(hop_score[a, 0])},
+                    "hops": hops,
+                    "path": p,
+                    "total_hops": len(hops),
+                    "total_discovered": len(p),
+                })
+            return infos
+
+        if cfg.method in ("ssg", "triangulation"):
+            infos = traversal_info(details["trav"])
+            out["retrieval_details"] = {
+                "method": cfg.method,
+                "traversal_info": infos[0] if len(infos) == 1 else infos,
+                "max_hops": cfg.max_hops,
+                "neighbor_k": cfg.neighbor_k,
+            }
+        elif cfg.method == "hybrid_expansion":
+            basic_rows = host(details["basic_rows"])
+            basic_set = set(basic_rows[host(details["basic_ok"])].tolist())
+
+            def method_stats(res: TraversalResult) -> Tuple[Dict, List[Dict]]:
+                hops = host(res.path)[:, 1:]
+                expanded = hops[hops >= 0]
+                uniq = set(expanded.tolist())
+                new = sorted(uniq - basic_set)
+                stats = {
+                    "total_expanded": int(expanded.size),
+                    "new_only": len(new),
+                    "in_basic_top50": len(uniq) - len(new),
+                }
+                return stats, [chunk_info(r) for r in new]
+
+            ssg_stats, ssg_new = method_stats(details["ssg"])
+            tri_stats, tri_new = method_stats(details["tri"])
+            out["algorithm_contribution"] = {
+                "basic_retrieval_count": len(basic_set),
+                "ssg_new_chunks_count": len(ssg_new),
+                "triangulation_new_chunks_count": len(tri_new),
+                "ssg_new_chunks": ssg_new,
+                "triangulation_new_chunks": tri_new,
+                "ssg_stats": ssg_stats,
+                "triangulation_stats": tri_stats,
+            }
+            # bounded per-anchor traversal records for a drill-down view
+            out["retrieval_details"] = {
+                "method": cfg.method,
+                "traversal_info": traversal_info(details["ssg"]),
+                "max_hops": cfg.max_hops,
+                "neighbor_k": cfg.neighbor_k,
+            }
         return out

@@ -2,8 +2,10 @@
 ``<index>.ivf.npz`` sidecar, reuses it while the index file is unchanged,
 and rebuilds it when the index file's fingerprint changes;
 ``--quantize-int8`` serves from the int8 variant of the index and
-``--scan-rt`` is accepted."""
+``--scan-rt`` is accepted; ``--method`` runs the traversal methods and
+prints ``materialize_details`` as one more JSON line."""
 
+import json
 import os
 
 import numpy as np
@@ -88,3 +90,35 @@ def test_query_quantize_int8_and_scan_rt(saved_index, monkeypatch, capsys):
         assert abs(float(a[1:7]) - float(b[1:7])) < 0.02
     _query(saved_index, "--quantize-int8", "--use-ivf")   # the IVF dequantizes for k-means
     assert len(capsys.readouterr().out.splitlines()) == 3
+
+
+@pytest.mark.parametrize("method", ["ssg", "triangulation", "hybrid_expansion"])
+def test_query_method_prints_hits_and_details(saved_index, capsys, method):
+    _query(saved_index, "--method", method, "--max-hops", "2", "--neighbor-k", "4",
+           "--use-bm25")
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 4 and all(ln.startswith("[") for ln in lines[:3])
+    details = json.loads(lines[3])
+    rd = details["retrieval_details"]
+    assert rd["method"] == method and rd["max_hops"] == 2 and rd["neighbor_k"] == 4
+    infos = rd["traversal_info"]
+    assert infos and all(len(t["hops"]) <= 2 and t["path"][0] == t["anchor"]["idx"]
+                         for t in infos)
+    assert all(len(h["candidates"]) <= 5 for t in infos for h in t["hops"])
+    if method == "hybrid_expansion":
+        ac = details["algorithm_contribution"]
+        assert ac["basic_retrieval_count"] == 24       # the two routed docs' chunks
+        assert ac["ssg_stats"]["total_expanded"] > 0
+    else:
+        assert details["algorithm_contribution"] is None
+
+
+def test_query_method_on_the_int8_index_and_unknown_method(saved_index, capsys):
+    _query(saved_index, "--method", "hybrid_expansion", "--quantize-int8",
+           "--max-hops", "2", "--neighbor-k", "4")
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 4 and json.loads(lines[3])["retrieval_details"]["traversal_info"]
+    _query(saved_index)                                # basic: hits only
+    assert len(capsys.readouterr().out.splitlines()) == 3
+    with pytest.raises(SystemExit):
+        _query(saved_index, "--method", "random_walk")

@@ -224,16 +224,13 @@ def test_tensor_query_embeddings_and_bf16_store(engines, rng, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(method="ssg"), "A.10"), (dict(method="triangulation"), "A.10"),
-    (dict(method="hybrid_expansion"), "A.10"),
     # IVF is ported: use_ivf without an IVFIndex is refused, as in the
     # reference's engine
     (dict(use_ivf=True), "build_ivf"),
-], ids=["kw0-A.10", "kw1-A.10", "kw2-A.10", "kw3-A.12"])
+], ids=["kw3-A.12"])
 def test_unported_options_raise(engines, rng, kw, item):
     _, te, embs = engines
-    exc = ValueError if kw.get("use_ivf") else NotImplementedError
-    with pytest.raises(exc, match=item):
+    with pytest.raises(ValueError, match=item):
         te.search(_q_for(embs, 0, 0, rng), "金盘科技", cfg=SearchConfig(**kw))
 
 
@@ -472,6 +469,6 @@ def test_search_many_edge_cases(engines, rng):
     with pytest.raises(ValueError, match="build_ivf"):
         te.search_many([_q_for(embs, 0, 0, rng)], "金盘科技",
                        cfg=SearchConfig(use_ivf=True))
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="unknown method"):
         te.search_many([_q_for(embs, 0, 0, rng)], "金盘科技",
-                       cfg=SearchConfig(method="ssg"))
+                       cfg=SearchConfig(method="random_walk"))

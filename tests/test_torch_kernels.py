@@ -685,3 +685,107 @@ def test_k3_float_misaligned_view_and_ties(dev, mode):
     assert torch.equal(ki, pi)
     same = kv[:, 1:] == kv[:, :-1]
     assert bool(same.any()) and bool((ki[:, 1:][same] > ki[:, :-1][same]).all())
+
+
+# ---- the traversal's hop shapes: K1 / K3 through ops.topk.dense_topk ------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1_700, 250_000])
+@pytest.mark.parametrize("B,k", [(8, 31), (10, 31), (20, 31), (80, 31), (128, 31),
+                                 (160, 31), (8, 1), (160, 1)])
+def test_hop_shapes_match_plain(dev, dtype, N, B, k):
+    """A hop of B walkers over one document's rows, with and without a
+    row-shared mask: K1 up to 64 walkers, K3 above, split at 128."""
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+    from rag_challenge_2_tpu_torch.ops.topk import dense_topk
+
+    g = torch.Generator(device="cpu").manual_seed(N + B + k)
+    D = 1024 if N == 1_700 else 128
+    q = torch.nn.functional.normalize(torch.randn(B, D, generator=g)).to(dev)
+    emb = torch.nn.functional.normalize(torch.randn(N, D, generator=g)).to(dev, dtype)
+    for mask in (None, (torch.rand(N, generator=g) > 0.4).to(dev)):
+        k1, k3 = dense_topk_fused.launches, stream_topk.launches
+        kv, ki = dense_topk(q, emb, k, mask=mask)
+        pv, pi = dense_topk_plain(q, emb, k, mask)
+        torch.cuda.synchronize()
+        assert (dense_topk_fused.launches - k1, stream_topk.launches - k3) == (
+            (1, 0) if B <= 64 else (0, -(-B // 128)))
+        _untied_rows_equal(kv, ki, pv, pi)
+
+
+def test_traversal_on_the_card_equals_the_cpu(dev):
+    """Both traversal forms on CUDA tensors (kernel hops) against the same
+    call on CPU copies (plain hops), for walkers clear of ties; int8 and
+    per-walker-mask hops are plain PyTorch on the card too."""
+    from rag_challenge_2_tpu_torch.ops.quant import quantize_rows
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+    from rag_challenge_2_tpu_torch.retrieval.traversal import traverse, traverse_windowed
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    N, D, A = 6_000, 256, 80
+    emb = torch.nn.functional.normalize(torch.randn(N, D, generator=g))
+    q = torch.nn.functional.normalize(torch.randn(3, A, D, generator=g))
+    ws, wl = [0, 2_000, 4_100], [2_000, 2_100, 1_900]
+    anchors = torch.stack([torch.randint(s, s + n, (A,), generator=g)
+                           for s, n in zip(ws, wl)]).to(torch.int32)
+    anchors[1, 7] = -1
+    e8, sc = quantize_rows(emb)
+
+    def clear(res, mode):
+        # tie windows: SSG's raw similarities 4e-6; triangulation's step score
+        # 1 / (1 + dist) moves a tenth as much with the sums' order: 1e-6
+        cs, hs, path = res.cand_scores, res.hop_score, res.path
+        tie = 4e-6 if mode == "ssg" else 1e-6
+        ok = ~((res.cand_ids[:, :, 1] >= 0) & ((cs[:, :, 0] - cs[:, :, 1]).abs() <= tie)).any(1)
+        if mode == "ssg":
+            ok &= ~((path[:, 2:] >= 0) & ((hs[:, 2:] - hs[:, 1:-1]).abs() <= tie)).any(1)
+        return ok
+
+    for mode in ("ssg", "triangulation"):
+        for store, scale in ((emb, None), (emb.to(torch.bfloat16), None), (e8, sc)):
+            k1, k3 = dense_topk_fused.launches, stream_topk.launches
+            got = traverse_windowed(store.to(dev), anchors.to(dev), q.to(dev), ws, wl,
+                                    None if scale is None else scale.to(dev),
+                                    max_hops=3, neighbor_k=30, mode=mode)
+            torch.cuda.synchronize()
+            hops = stream_topk.launches - k3
+            assert dense_topk_fused.launches == k1
+            assert hops == (0 if store.dtype == torch.int8 else 9)   # 3 groups x 3 hops
+            ref = traverse_windowed(store, anchors, q, ws, wl, scale,
+                                    max_hops=3, neighbor_k=30, mode=mode)
+            got = type(got)(*(x.cpu() for x in got))
+            ok = clear(got, mode) & clear(ref, mode)
+            assert (~ok).sum() <= 0.01 * ok.numel()
+            assert torch.equal(got.path[ok], ref.path[ok])
+            # a recorded candidate is compared where its score is clear of
+            # both its neighbours in the record
+            gap = (ref.cand_scores[..., :-1] - ref.cand_scores[..., 1:]).abs() > 4e-6
+            edge = torch.ones_like(gap[..., :1])
+            sel = (torch.cat([edge, gap], -1) & torch.cat([gap, ~edge], -1)
+                   & ok[:, None, None] & (ref.cand_ids >= 0))
+            assert torch.equal(got.cand_ids[sel], ref.cand_ids[sel])
+            torch.testing.assert_close(got.hop_score[ok], ref.hop_score[ok],
+                                       rtol=0, atol=1e-4)
+        # a per-walker [A, N] mask: plain hops on the card, no launch
+        mask = torch.zeros(A, N, dtype=torch.bool)
+        mask[:, : wl[0]] = True
+        k1, k3 = dense_topk_fused.launches, stream_topk.launches
+        got = traverse(emb.to(dev), anchors[0].to(dev), q[0].to(dev), mask.to(dev),
+                       max_hops=2, neighbor_k=30, mode=mode)
+        assert (dense_topk_fused.launches, stream_topk.launches) == (k1, k3)
+        ref = traverse(emb, anchors[0], q[0], mask, max_hops=2, neighbor_k=30, mode=mode)
+        got = type(got)(*(x.cpu() for x in got))
+        ok = clear(got, mode) & clear(ref, mode)
+        assert (~ok).sum() <= 0.01 * ok.numel() and torch.equal(got.path[ok], ref.path[ok])
+
+
+def test_neighbor_k_above_the_kernels_k_raises_on_the_card(dev):
+    from rag_challenge_2_tpu_torch.retrieval.traversal import traverse
+
+    emb = torch.randn(500, 32, device=dev)
+    with pytest.raises(ValueError, match="neighbor_k"):
+        traverse(emb, torch.tensor([3], device=dev), emb[3:4].clone(), None,
+                 max_hops=2, neighbor_k=64, mode="ssg")
+    res = traverse(emb, torch.tensor([3], device=dev), emb[3:4].clone(), None,
+                   max_hops=2, neighbor_k=63, mode="ssg")
+    assert res.path[0, 1] >= 0

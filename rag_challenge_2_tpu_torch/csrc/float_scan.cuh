@@ -1,6 +1,7 @@
 // Device code shared by K1 (dense_topk.cu) and K3 (stream_topk.cu):
 //   * the total order of candidates and the sorted-list helpers;
-//   * mbarrier / TMA stage helpers with a bounded wait;
+//   * the 2-D TMA stage helper (the mbarrier helpers and the bounded
+//     wait are in tma.cuh);
 //   * the rank merge of a query's buffered candidates into its carried
 //     top-k and the gate's out-of-line half;
 //   * scan_float: the f32 / bf16 scoring kernel both libraries launch.
@@ -74,6 +75,8 @@
 #include <cstring>
 #include <type_traits>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -91,7 +94,6 @@ constexpr int kSmemReserved = 1024;     // per block, taken by the runtime
 constexpr int kTmaError = 100000;       // + CUresult of a failed encode
 constexpr int kMaxDevices = 64;         // devices whose attributes are remembered
 constexpr int kDefaultDynamicSmem = 48 * 1024;   // a launch may ask this much unasked
-constexpr uint64_t kStageWaitNs = 4000000000ull;   // 4 s: a stuck stage traps
 constexpr int kFloatCandCap = 32;       // scan_float: gated candidates per query
 constexpr int kSeedBits = 16;           // bits of a chunk's first threshold
 
@@ -128,52 +130,6 @@ __device__ __forceinline__ int count_better(const float* v, const int* r,
 }
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits for a ring stage.  A stage that never completes (a transfer whose
-// bytes do not match the expected count, a tensor map that does not fit
-// the call) would spin forever and hang the card, so after kStageWaitNs
-// the block traps: the launch fails, and the caller's next synchronisation
-// raises.  A healthy stage arrives within microseconds.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const uint64_t t = global_ns();
-    if (t0 == 0) {
-      t0 = t;
-    } else if (t - t0 > kStageWaitNs) {
-      __trap();
-    }
-  }
-}
 
 __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0,
                                        int c1, uint32_t bar) {

@@ -1,12 +1,22 @@
 """Kernel K2: posting-span gather (``csrc/span_gather.cu``).
 
 Port of the TPU kernel ``rag_challenge_2_tpu/ops/pallas_bm25.py``
-(``gather_posting_spans``), the BM25 front end: each query term owns the
-contiguous span ``[start, start + window)`` of the CSR arrays, and the
-kernel copies those spans with coalesced 16-byte loads instead of a
-random per-element gather.  Positions are clamped to the array like the
-reference's XLA path, so the result equals the plain version bit for bit
-on any CSR.  The source note in the ``.cu`` file says what bounds it.
+(``gather_posting_spans``), the BM25 front end and the IVF arm's row-id
+and scale copy: each (query, term) or (query, probed list) owns the
+contiguous span ``[start, start + window)`` of 2 or 3 parallel arrays of
+4-byte words, and the kernel copies those spans into one
+``[n_arrays, G, window]`` buffer.  Positions are clamped to the array like
+the reference's XLA path, so the result equals the plain version bit for
+bit on any CSR.
+
+The kernel is bound by bytes, and at the main path's shapes by the chain
+of dependent memory round trips a launch makes.  So all of a piece's loads
+are in flight at once: one block per work item (span, piece), each thread
+issuing every 16-byte load it needs for every array before it stores the
+realigned window with 16-byte stores.  :func:`plan` makes the cut (pieces
+of at most ``MAX_PIECE`` words) and picks the chunks a thread holds in
+Python, so that the CPU tests reach it; the ``.cu`` file's source note
+says the rest.
 
 :func:`gather_posting_spans` takes the plain version only for a tensor on
 the CPU.  For a CUDA tensor it launches the kernel or raises.
@@ -15,6 +25,7 @@ the CPU.  For a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -23,6 +34,43 @@ from ..utils import kernels
 
 _LANES = 128
 ALIGN = 1024
+
+# the kernel's constants (csrc/span_gather.cu); a card test holds them equal
+THREADS = 128
+MAX_ARRAYS = 3
+MAX_PIECE = 2048            # output words of one work item (8 KB per array)
+MAX_CHUNKS = MAX_PIECE // 4 // THREADS   # 16-byte output chunks a thread holds
+SPAN_CONSTANTS = (THREADS, MAX_ARRAYS, MAX_PIECE, MAX_CHUNKS)
+
+
+@dataclass(frozen=True)
+class SpanPlan:
+    """The launch geometry of one K2 call: one block per (span, piece),
+    block ``span * n_pieces + piece``."""
+
+    piece: int          # output words of a work item (the last may be shorter)
+    n_pieces: int       # pieces per span
+    items: int          # G x n_pieces work items, one block each
+    chunks: int         # 16-byte output chunks a thread holds per array: 1, 2 or 4
+
+
+def plan(G: int, window: int, n_arrays: int) -> SpanPlan:
+    """Cut ``G`` spans of ``window`` words into work items of at most
+    ``MAX_PIECE`` words (a span of up to ``MAX_PIECE`` is one item; a longer
+    one is cut into equal pieces of a multiple of 4 words, so every piece of
+    a 16-byte-aligned output row starts aligned) and pick the chunks a
+    thread holds: the fewest that cover a piece, so a short piece keeps few
+    registers and more blocks fit an SM."""
+    if G < 1 or window < 1 or not 2 <= n_arrays <= MAX_ARRAYS:
+        raise ValueError(f"K2 plan: G={G}, window={window}, n_arrays={n_arrays}")
+    n_pieces = -(-window // MAX_PIECE)
+    per = -(-window // n_pieces)
+    piece = window if n_pieces == 1 else -(-per // 4) * 4
+    n_pieces = -(-window // piece)
+    piece_chunks = -(-piece // 4)               # 16-byte chunks of a piece
+    need = -(-piece_chunks // THREADS)
+    chunks = next(c for c in (1, 2, MAX_CHUNKS) if c >= need)
+    return SpanPlan(piece, n_pieces, G * n_pieces, chunks)
 
 
 def dma_slack(window: int) -> int:
@@ -57,7 +105,9 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rc2_span_gather.restype = I
         lib.rc2_span_gather.argtypes = [
-            P, P, P, ctypes.c_longlong, P, I, I, P, P, P, P]
+            P, P, P, ctypes.c_longlong, P, I, I, P, P, P, I, I, I, P]
+        lib.rc2_span_gather_constants.restype = None
+        lib.rc2_span_gather_constants.argtypes = [P]
         _LIB = lib
     return _LIB
 
@@ -103,16 +153,26 @@ def gather_posting_spans(
     buf = torch.empty((len(arrays), G, window), dtype=torch.float32,
                       device=starts.device)
     outs = [buf[0].view(torch.int32)] + [buf[i] for i in range(1, len(arrays))]
+    if G == 0:
+        return tuple(outs)
+    cut = plan(G, window, len(arrays))
     src = [a.data_ptr() for a in arrays] + [None] * (3 - len(arrays))
     dst = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
     lib = _lib()
     rc = lib.rc2_span_gather(
-        *src, n, starts.data_ptr(), G, window, *dst,
-        torch.cuda.current_stream(starts.device).cuda_stream,
+        *src, n, starts.data_ptr(), G, window, *dst, cut.piece, cut.n_pieces,
+        cut.chunks, torch.cuda.current_stream(starts.device).cuda_stream,
     )
     kernels.check_launch(lib, rc, "span_gather")
     gather_posting_spans.launches += 1
     return tuple(outs)
+
+
+def kernel_constants() -> Tuple[int, ...]:
+    """The constants compiled into the kernel (needs the card's build)."""
+    out = (ctypes.c_int * len(SPAN_CONSTANTS))()
+    _lib().rc2_span_gather_constants(out)
+    return tuple(out)
 
 
 gather_posting_spans.launches = 0

@@ -68,8 +68,8 @@ def source_files(src: Path) -> List[Path]:
     return seen
 
 
-def _build(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def _build(name: str, src: Optional[Path] = None) -> Path:
+    src = src or CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
     # rebuilt when the source or a header it includes is newer
     newest = max(f.stat().st_mtime for f in source_files(src))
@@ -104,12 +104,13 @@ def build_all(names: Optional[Sequence[str]] = None) -> None:
         list(pool.map(_build, names))
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu`` (built on first use)."""
+def load_library(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, or from ``src`` (a
+    baseline kept outside the port), built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(name)))
+            lib = ctypes.CDLL(str(_build(name, src)))
             lib.rc2_cuda_error_string.restype = ctypes.c_char_p
             lib.rc2_cuda_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib

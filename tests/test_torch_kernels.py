@@ -105,6 +105,91 @@ def test_k2_bitwise_equals_plain(dev, with_dl, window):
         assert torch.equal(a, b)
 
 
+def _k2_equal(arrays, starts, window):
+    dl = arrays[2] if len(arrays) > 2 else None
+    before = gather_posting_spans.launches
+    out = gather_posting_spans(arrays[0], arrays[1], starts, window=window, dl=dl)
+    ref = gather_posting_spans_plain(arrays[0], arrays[1], starts, window=window, dl=dl)
+    torch.cuda.synchronize()
+    assert gather_posting_spans.launches == before + 1
+    assert len(out) == len(arrays)
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_arrays", [2, 3])
+@pytest.mark.parametrize("window", [1, 3, 4, 5, 512, 577, 4096, 10_000])
+def test_k2_every_start_residue_view_and_grid(dev, window, n_arrays):
+    """Every start residue mod 4, arrays viewed at +0 / +1 / +3 words (the
+    bulk copies' 16-byte extension moves with the address), G that is not
+    a multiple of the persistent grid, windows off the 16-byte grid and
+    longer than one piece (4096 and 10,000 words are 2 and 5 pieces)."""
+    g = torch.Generator(device="cpu").manual_seed(window * 10 + n_arrays)
+    n = 60_001
+    ids = torch.randint(0, 1 << 30, (n,), generator=g, dtype=torch.int32).to(dev)
+    tf = torch.rand(n, generator=g).to(dev)
+    dl = torch.rand(n, generator=g).to(dev)
+    inner = torch.randint(0, n - window - 4, (1016,), generator=g)
+    for r in range(4):
+        starts = (inner - inner % 4 + r).to(torch.int32).to(dev)
+        for view in (0, 1, 3):
+            arrays = [ids[view:], tf[view:], dl[view:]][:n_arrays]
+            for G in (1, 529, 1016):
+                _k2_equal(arrays, starts[:G].contiguous(), window)
+
+
+@pytest.mark.parametrize("window", [1, 5, 512, 4096])
+def test_k2_spans_crossing_both_ends_take_the_word_path(dev, window):
+    """Starts before 0 and spans past the end clamp like the reference's
+    XLA path, on a CSR with no slack at all."""
+    g = torch.Generator(device="cpu").manual_seed(window)
+    n = 9_000
+    ids = torch.randint(0, 1 << 30, (n,), generator=g, dtype=torch.int32).to(dev)
+    tf = torch.rand(n, generator=g).to(dev)
+    dl = torch.rand(n, generator=g).to(dev)
+    starts = torch.tensor([-window - 5, -window, -3, -1, 0, 1, 2, n - window - 1, n - window,
+                           n - 3, n - 1, n, n + 7, -(2 ** 31), 2 ** 31 - 1],
+                          dtype=torch.int32, device=dev)
+    _k2_equal([ids, tf, dl], starts, window)
+    _k2_equal([ids[1:], tf[1:]], starts, window)
+
+
+@pytest.mark.parametrize("window", [577, 600, 622])
+def test_k2_ivf_arrays_on_the_list_grid(dev, window):
+    """The IVF arm's call: row ids and scales, G = 127 x 8 starts on the
+    32-row list grid, W = max_list (not a multiple of 4 in general)."""
+    g = torch.Generator(device="cpu").manual_seed(window)
+    n = 200_000 + 32 + window + 1024
+    rid = torch.randint(-1, 10**6, (n,), generator=g, dtype=torch.int32).to(dev)
+    scale = torch.rand(n, generator=g).to(dev)
+    starts = (torch.randint(0, 200_000 // 32, (1016,), generator=g) * 32).to(torch.int32)
+    _k2_equal([rid, scale], starts.to(dev), window)
+
+
+def test_k2_is_one_device_kernel_and_mirrors_its_planner(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_challenge_2_tpu_torch.ops import span_gather
+
+    assert span_gather.kernel_constants() == span_gather.SPAN_CONSTANTS
+    n, W = 100_000, 4096
+    ids = torch.zeros(n, dtype=torch.int32, device=dev)
+    tf = torch.zeros(n, device=dev)
+    starts = torch.arange(0, 512 * 64, 64, dtype=torch.int32, device=dev)
+    gather_posting_spans(ids, tf, starts, window=W, dl=tf)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gather_posting_spans(ids, tf, starts, window=W, dl=tf)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()
+             if getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)]
+    assert len(names) == 1 and "gather_spans" in names[0]
+    # no starts: nothing to launch, empty outputs
+    before = gather_posting_spans.launches
+    out = gather_posting_spans(ids, tf, starts[:0], window=W)
+    assert [o.shape for o in out] == [(0, W), (0, W)] and gather_posting_spans.launches == before
+
+
 # ---- K4: IVF probe span scores, and K2 on the IVF arrays ----------------
 
 K4_CASES = [

@@ -84,7 +84,19 @@ without printing a result:
    with the peak memory over the store under 8 GB; (e) 2, 4 and 8
    concurrent requests through the micro-batcher against separate calls.
    7a, 7b and 7e run after phase 3, 7c after phase 4, 7d inside phase 6.
-8. the last line: ``{"ok": true, "device": {...}}``.
+8. the QA server on the card (right after phase 3, while its full-width
+   encoder is the embedder): ``QuestionsProcessor`` with the ``qwen``
+   preset's QA settings (parent pages, LLM reranking of 30) and hybrid
+   BM25, a scripted stub in the LLM's seat, behind ``QAWebApp``; 16
+   questions on the card against the CPU engine over the same index and
+   embeddings (retrieval tie-aware, the whole payload and every prompt
+   equal), the same over HTTP with 2 ``hybrid_expansion`` and 2 ``ssg``
+   asks, the other endpoints, exact K1 / K2 / K3 launches per serial ask,
+   8 concurrent asks in one micro-batcher dispatch equal to the serial
+   ones; ms per ask, the processor's stages, asks/s serial and at 8
+   concurrent, the busy share of one ask.  Any reply carrying ``error``
+   fails the run.
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Weights are random from ``--seed`` unless a
 ``save_params`` npz is given.
@@ -94,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -2677,6 +2690,333 @@ def phase7e_batcher(dev, ctx3):
     return out
 
 
+# --------------------------------------------------------------- phase 8
+
+# The LLM's seat: a scripted stub for page selection, reranking, the answer
+# and the judge (the first needle found in a prompt picks the reply)
+QA_SCRIPT = {
+    "标准答案": {"score": 1.0, "reasoning": "一致", "is_correct": True},
+    # 4 blocks a reranking batch, distinct relevance by position; a batch
+    # of another size falls back to one block a call
+    "文本块集合": {"block_rankings": [{"reasoning": f"r{i}", "relevance_score": s}
+                                  for i, s in enumerate((0.9, 0.35, 0.6, 0.75))]},
+    "文本块:": {"reasoning": "r", "relevance_score": 0.8},
+    "上下文": {"step_by_step_analysis": "一二三四五步骤" * 10, "reasoning_summary": "总结",
+            "relevant_pages": [3], "final_answer": 68.9},
+}
+QA_PAGE = re.compile(r"Text retrieved from page (\d+)")
+# payload keys that differ between two runs of the same work
+QA_VOLATILE = ("timing", "avg_llm_latency")
+
+
+def qa_processor(eng, embedder, **cfg):
+    """The ``qwen`` preset's QA settings (pipeline/run.py:337-339: parent
+    pages, LLM reranking of 30, 4 parallel requests) with hybrid BM25 (sum
+    fusion, dense weight 0.5), over ``eng``; a scripted stub answers.  The
+    page-selection reply names the 1st and 3rd pages of its prompt."""
+    from rag_challenge_2_tpu_torch.llm import (
+        LLMFacade, LLMReranker, RateLimiter, StubProvider)
+    from rag_challenge_2_tpu_torch.qa import QAConfig, QuestionsProcessor
+
+    class Stub(StubProvider):
+        def _complete(self, model, system_content, human_content, temperature, **kw):
+            out = super()._complete(model, system_content, human_content, temperature, **kw)
+            if "候选页面" in human_content:
+                pages = [int(p) for p in QA_PAGE.findall(human_content)]
+                return json.dumps({"selected_pages": pages[:3:2], "reasoning": "相关"})
+            return out
+
+    stub = Stub(QA_SCRIPT)
+    rr = LLMReranker(stub)
+    rr.rate_limiter = RateLimiter(0)              # the stub needs no throttle
+    qa = QAConfig(return_parent_pages=True, llm_reranking=True,
+                  llm_reranking_sample_size=30, parallel_requests=4, use_bm25=True, **cfg)
+    return QuestionsProcessor(eng, embedder, LLMFacade(stub), rr, qa), stub
+
+
+def same_hits(name, got, ref, tol):
+    """Two runs' materialised parent-page results: scores within ``tol``
+    rank by rank, the pages identical up to the order inside groups of
+    scores tied within ``tol`` (a group cut by top_n may differ), each
+    page's fields equal.  Returns 1 if a tie group was reordered, else 0."""
+    check(len(got) == len(ref), f"{name}: {len(got)} results against {len(ref)}")
+    gs, rs = [r["distance"] for r in got], [r["distance"] for r in ref]
+    err = max((abs(a - b) for a, b in zip(gs, rs)), default=0.0)
+    check(err <= tol, f"{name}: scores differ by {err}")
+    ident = [(r["source_sha1"], r["page"]) for r in got], [(r["source_sha1"], r["page"])
+                                                         for r in ref]
+    reordered, i = 0, 0
+    while i < len(rs):
+        j = i + 1
+        while j < len(rs) and abs(rs[j] - rs[j - 1]) <= 2 * tol:
+            j += 1
+        if j < len(rs):
+            check(set(ident[0][i:j]) == set(ident[1][i:j]),
+                  f"{name}: pages differ at ranks {i}..{j}")
+        reordered |= ident[0][i:j] != ident[1][i:j]
+        i = j
+    by_page = dict(zip(ident[1], ref))
+    for key, r in zip(ident[0], got):
+        o = by_page.get(key)
+        check(o is None or all(r[f] == o[f] for f in (
+            "text", "source_year", "hit_count", "method_count")),
+              f"{name}: fields of page {key} differ")
+    return int(reordered)
+
+
+def same_payload(name, got, ref, tol, where="$"):
+    """Two JSON payloads: the same keys, types and strings, floats within
+    ``tol`` (a reranked ``combined_score`` is rounded to 4 places: one
+    rounding step apart is the outcome of a 1e-7 difference)."""
+    if isinstance(ref, float) and isinstance(got, float):
+        lim = tol + (1e-4 if where.endswith(".combined_score") else 0.0)
+        check(abs(got - ref) <= lim, f"{name}: {where} differs: {got} vs {ref}")
+        return
+    check(type(got) is type(ref), f"{name}: {where} types differ: "
+          f"{type(got).__name__} vs {type(ref).__name__}")
+    if isinstance(ref, dict):
+        check(got.keys() == ref.keys(), f"{name}: {where} keys differ: "
+              f"{sorted(set(got) ^ set(ref))}")
+        for k in ref:
+            if k not in QA_VOLATILE:
+                same_payload(name, got[k], ref[k], tol, f"{where}.{k}")
+    elif isinstance(ref, list):
+        check(len(got) == len(ref), f"{name}: {where} lengths differ")
+        for i, (a, b) in enumerate(zip(got, ref)):
+            same_payload(name, a, b, tol, f"{where}[{i}]")
+    else:
+        check(got == ref, f"{name}: {where} differs: {got!r} vs {ref!r}")
+
+
+def same_ask(name, got, ref, tol, got_calls=None, ref_calls=None):
+    """One question answered twice: the retrieval results tie-aware
+    (:func:`same_hits`), then, unless a tie group was reordered (every
+    later stage then sees the pages in another order), the whole payload
+    and every prompt the stub received.  Returns 1 for a reordered tie."""
+    if same_hits(name, got["initial_retrieval_results"],
+                 ref["initial_retrieval_results"], tol):
+        log(f"{name}: a tie group of the retrieval results is reordered; the "
+            f"rest of this answer is not compared")
+        return 1
+    same_payload(name, got, ref, tol)
+    if got_calls is not None:
+        # the reranker scores its batches on a thread pool: a multiset
+        key = [sorted((c["system"], c["user"]) for c in calls)
+               for calls in (got_calls, ref_calls)]
+        check(key[0] == key[1], f"{name}: the prompts differ")
+    return 0
+
+
+def http_call(url, path, payload=None, want_json=True):
+    """One request to the QA server; a JSON reply that carries ``error``
+    fails the phase (the server turns every exception into one)."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload, ensure_ascii=False).encode()
+    req = urllib.request.Request(url + path, data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body = r.read()
+    if not want_json:
+        return body.decode()
+    out = json.loads(body)
+    check(not (isinstance(out, dict) and "error" in out),
+          f"{path} {payload}: the server replied {str(out)[:300]}")
+    return out
+
+
+def phase8_qa(dev, model, ctx3, card):
+    """The QA server on the card over phase 3's deployment corpus: the
+    ``qwen`` preset (parent pages, LLM reranking of 30) with hybrid BM25,
+    a scripted stub in the LLM's seat and the full-width encoder as the
+    embedder.  (1) 16 questions answered by a processor on the card and by
+    one on the CPU engine over the same index with the same embeddings;
+    (2) the same over HTTP (``QAWebApp``), and 2 ``hybrid_expansion`` and 2
+    ``ssg`` asks, against the direct calls; the page, the question bank,
+    a cited page and the judge; (3) launches per serial ask; (4) 8
+    concurrent asks through the micro-batcher against the serial ones, in
+    one dispatch; (5) ms per ask, the processor's stages, asks/s serial
+    and at 8 concurrent, the card's busy share over one ask."""
+    import copy
+    import dataclasses
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from rag_challenge_2_tpu_torch.retrieval import QueryEngine
+    from rag_challenge_2_tpu_torch.serving import QAWebApp
+
+    log("== phase 8: the QA server on the card")
+    t_phase = time.perf_counter()
+    eng, reqs = ctx3["eng"], ctx3["requests"]
+    cache = {}
+
+    def embed_once(texts):
+        """The encoder's embeddings, computed once per text and shared by
+        the card's and the CPU's processors."""
+        new = [t for t in dict.fromkeys(texts) if t not in cache]
+        if new:
+            cache.update(zip(new, model.embed(new)))
+        return np.stack([cache[t] for t in texts])
+
+    gp, gstub = qa_processor(eng, embed_once)
+    cp, cstub = qa_processor(QueryEngine(eng.index.to("cpu"), eng.meta), embed_once)
+    schema = gp.config.schema
+    asks = [(question, years) for question, _, years, _ in reqs]
+
+    # (1) direct calls: the card against the CPU engine
+    direct, tied = [], 0
+    for i, (question, years) in enumerate(asks):
+        got_ref = []
+        for proc, stub in ((gp, gstub), (cp, cstub)):
+            stub.calls.clear()
+            ans = proc.get_answer_for_company(COMPANY, question, schema,
+                                              selected_years=years)
+            # a non-JSON value (a tensor, a numpy scalar) raises here
+            got_ref.append((json.loads(json.dumps(ans, ensure_ascii=False)),
+                            list(stub.calls)))
+        (g, gc), (c, cc) = got_ref
+        routed = {eng.meta.docs[d].sha1 for d in eng.routed_docs(COMPANY, "", years)}
+        check(g["final_answer"] == 68.9 and g["references"] and g["relevant_pages"]
+              and all(r["source_sha1"] in routed and np.isfinite(r["distance"])
+                      for r in g["initial_retrieval_results"]),
+              f"ask {i}: no answer, or a hit outside the route")
+        tied += same_ask(f"direct ask {i} (card vs CPU)", g, c, K1_TOL, gc, cc)
+        direct.append(g)
+    check(tied <= 1, f"{tied} of {len(asks)} asks reordered a tie group")
+    log(f"direct: {len(asks)} asks on the card == on the CPU engine (retrieval "
+        f"tie-aware within {K1_TOL}; references, relevant pages, final answer, "
+        f"every prompt and the whole payload equal); asks with a reordered tie: {tied}")
+
+    # (2) over HTTP
+    app = QAWebApp(gp, default_company=COMPANY)
+    server = app.make_server(port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    gp8, _ = qa_processor(eng, embed_once, micro_batch=8)
+    # a window long enough for 8 requests to gather: the batcher dispatches
+    # as soon as the 8th arrives
+    gp8.batcher.window_ms = 400.0
+    server8 = QAWebApp(gp8, default_company=COMPANY).make_server(port=0)
+    threading.Thread(target=server8.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_port}"
+    url8 = f"http://127.0.0.1:{server8.server_port}"
+    try:
+        html = http_call(url, "/", want_json=False)
+        check("金盘科技年报问答" in html and "hybrid_expansion" in html, "GET / is not the page")
+        bank = http_call(url, "/api/bank")
+        check(isinstance(bank, dict) and all(bank.values()), "the question bank is empty")
+        served, tied = [], 0
+        for i, ((question, years), d) in enumerate(zip(asks, direct)):
+            r = http_call(url, "/api/ask", {"question": question, "years": years})
+            tied += same_ask(f"HTTP ask {i}", r, d, K1_TOL)
+            served.append(r)
+        check(tied <= 1, f"HTTP: {tied} asks reordered a tie group")
+        ref = direct[0]["references"][0]
+        page = http_call(url, f"/api/page?doc={ref['pdf_sha1']}&page={ref['page_index']}")
+        check(page["page"] == ref["page_index"] and page["text"], "/api/page: no page text")
+        judged = http_call(url, "/api/eval", {"records": [
+            {"question": asks[0][0], "standard_answer": "68.9",
+             "rag_answer": str(served[0]["final_answer"])}]})
+        check(judged["statistics"]["accuracy"] == 1.0, f"/api/eval: {judged['statistics']}")
+        for method in ("hybrid_expansion", "ssg"):
+            proc = copy.copy(gp)
+            proc.config = dataclasses.replace(gp.config, retrieval_method=method)
+            for i, (question, years) in enumerate(asks[:2]):
+                d = json.loads(json.dumps(proc.get_answer_for_company(
+                    COMPANY, question, schema, selected_years=years), ensure_ascii=False))
+                r = http_call(url, "/api/ask", {"question": question, "years": years,
+                                                "method": method})
+                check(r["retrieval_details"]["method"] == method,
+                      f"HTTP {method}: no traversal details")
+                check(not same_ask(f"HTTP {method} ask {i}", r, d, K1_TOL),
+                      f"HTTP {method} ask {i}: a tie group reordered on one card")
+        log(f"HTTP: GET /, /api/bank, /api/page, POST /api/eval answered; {len(asks)} "
+            f"basic + BM25 asks == the direct calls (asks with a reordered tie: {tied}); "
+            f"2 hybrid_expansion and 2 ssg asks == the direct calls; no reply carries error")
+
+        # (3) launches per serial ask
+        expected = {"basic": dict(dense_topk=3, span_gather=1, stream_topk=0),
+                    "hybrid_expansion": dict(dense_topk=3, span_gather=1, stream_topk=36),
+                    "ssg": dict(dense_topk=15, span_gather=1, stream_topk=0)}
+        launches = {}
+        for method, want in expected.items():
+            for question, years in asks[:2]:
+                zero_counts()
+                http_call(url, "/api/ask", {"question": question, "years": years,
+                                            "method": method})
+                got = read_counts()
+                check(all(got[k] == v for k, v in want.items()) and got["probe_scores"] == 0,
+                      f"phase 8 launches of one {method} ask: {got}, expected {want}")
+            launches[method] = {k: got[k] for k in want}
+        log(f"launches per serial ask: {launches}")
+
+        # (4) 8 concurrent asks through the micro-batcher, one route
+        years0 = asks[0][1]
+        same_route = ([i for i, (_, y) in enumerate(asks) if y == years0] * 8)[:8]
+
+        def burst(u, idx):
+            with ThreadPoolExecutor(len(idx)) as ex:
+                return list(ex.map(lambda i: http_call(
+                    u, "/api/ask", {"question": asks[i][0], "years": asks[i][1]}), idx))
+
+        zero_counts()
+        conc = burst(url8, same_route)
+        got = read_counts()
+        stats = dict(gp8.batcher.stats)
+        check(stats["dispatches"] == 1 and stats["batched_requests"] == 8,
+              f"8 concurrent asks: batcher {stats}, expected one dispatch of 8")
+        check(got["dense_topk"] == 3 and got["stream_topk"] == 0,
+              f"8 stacked asks (64 queries a slot) launch K1 once a slot: {got}")
+        tied = sum(same_ask(f"concurrent ask {n}", r, served[i], K1_TOL)
+                   for n, (i, r) in enumerate(zip(same_route, conc)))
+        check(tied <= 1, f"concurrent: {tied} asks reordered a tie group")
+        log(f"8 concurrent asks == the serial ones; the batcher ran one dispatch of 8 "
+            f"requests (64 stacked queries a slot, {got['dense_topk']} K1 launches)")
+
+        # (5) times with the encoder in the loop (no cache)
+        gp.embedder = gp8.embedder = model.embed
+        ask_ms, stage = [], {}
+        t0 = time.perf_counter()
+        for question, years in asks:
+            t1 = time.perf_counter()
+            r = http_call(url, "/api/ask", {"question": question, "years": years})
+            ask_ms.append((time.perf_counter() - t1) * 1e3)
+            for k, v in r["timing"].items():
+                stage.setdefault(k, []).append(v * 1e3)
+        serial_s = time.perf_counter() - t0
+        stage_ms = {k: statistics.mean(v) for k, v in stage.items()}
+        rates = {}
+        for label, u in (("8 concurrent", url), ("8 concurrent, micro_batch 8", url8)):
+            burst(u, same_route)                                   # warm-up
+            _, t = wall(lambda: burst(u, same_route), dev)
+            rates[label] = 8 / t
+        payload = {"question": asks[0][0], "years": asks[0][1]}
+        wall_ms, device_ms = busy_share(lambda: app.ask(dict(payload)))
+    finally:
+        for s in (server, server8):
+            s.shutdown()
+            s.server_close()
+    out = dict(
+        ms_per_ask_median=statistics.median(ask_ms), ms_per_ask_mean=statistics.mean(ask_ms),
+        asks_per_s_serial=len(asks) / serial_s, asks_per_s=rates, stage_ms=stage_ms,
+        busy=dict(wall_ms=wall_ms, device_ms=device_ms,
+                  share=device_ms / wall_ms if device_ms else None),
+        launches=launches, seconds=time.perf_counter() - t_phase)
+    log(f"QA over HTTP on {card}: {len(asks)} serial asks, median "
+        f"{out['ms_per_ask_median']:.2f} ms (mean {out['ms_per_ask_mean']:.2f}) = "
+        f"{out['asks_per_s_serial']:.1f} asks/s; 8 concurrent "
+        f"{rates['8 concurrent']:.1f} asks/s, with micro_batch 8 (400 ms window) "
+        f"{rates['8 concurrent, micro_batch 8']:.1f} asks/s")
+    log(f"QA stages on {card}, ms per ask: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_ms.items()))
+    log(f"one ask (QAWebApp.ask) under the profiler on {card}: wall {wall_ms:.2f} ms, "
+        + (f"device kernels {device_ms:.2f} ms = {100 * device_ms / wall_ms:.1f}% busy"
+           if device_ms else "no device records in the window: busy share not measured"))
+    log(f"phase 8 took {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -2695,8 +3035,9 @@ def main(argv=None):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else f"nvidia-smi: {smi.stderr.strip()}")
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: {smi.stderr.strip()}")
+    log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     import numpy as np
@@ -2721,6 +3062,7 @@ def main(argv=None):
     work = ROOT / "build" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
     p3, ctx3 = phase3_main_path(dev, model, np.random.default_rng(args.seed), work)
+    p8 = phase8_qa(dev, model, ctx3, card)
     del model
     torch.cuda.empty_cache()
     p7 = dict(hops=phase7a_hop_shapes(dev, gen), deploy=phase7b_deploy(dev, ctx3),
@@ -2735,7 +3077,8 @@ def main(argv=None):
     p7["int8_10m"] = p6["engine"]["traversal_10m"]
 
     log("summary " + json.dumps({"phase3": p3, "phase4": p4, "phase5": p5,
-                                 "phase6": p6, "phase7": p7, "kernels": k}))
+                                 "phase6": p6, "phase7": p7, "phase8": p8, "kernels": k}))
+    qa = p8["launches"]
     hyb = p7["deploy"]["hybrid_expansion+bm25"]["launches_per_request"]
     big = [c for c in k["k1"] if c["N"] == 250_000 and c["dtype"] == "bfloat16"][0]
     kernels_line = {"kernels": [
@@ -2745,6 +3088,8 @@ def main(argv=None):
          "launches": p3["launches"]["dense_topk"],
          # phase 7b / 7c: the basic block of one hybrid_expansion request
          "launches_per_hybrid_request": hyb["dense_topk"],
+         # phase 8: one served QA ask (basic + BM25, 3 routed reports)
+         "launches_per_qa_ask": qa["basic"]["dense_topk"],
          "max_abs_err": max(k["k1_err"], p7["hops"]["err"]),
          "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
          "bound_by": big["bound_by"], "library_ms": big["library_ms"]},
@@ -2754,6 +3099,7 @@ def main(argv=None):
          # both uses: the BM25 arm (phase 3) and the IVF arm (phase 5)
          "launches": p3["launches"]["span_gather"]
          + p5["engine"]["win_start"]["launches"]["span_gather"],
+         "launches_per_qa_ask": qa["basic"]["span_gather"],
          "max_abs_err": 0.0,
          # the deployment's BM25 calls (phase 3): G = 8 x 64, W = max_postings
          "shape": f"G={p3['k2']['G']} W={p3['k2']['W']} arrays={p3['k2']['arrays']}",
@@ -2793,6 +3139,9 @@ def main(argv=None):
          # phase 7c's bf16 store
          "launches_per_hybrid_request": (
              hyb if short == "f32" else p7["scale"]["launches_per_call"])["stream_topk"],
+         # phase 8: one served hybrid_expansion ask on the f32 deployment store
+         "launches_per_qa_hybrid_ask": (qa["hybrid_expansion"]["stream_topk"]
+                                        if short == "f32" else None),
          "max_abs_err": max(p6["k3_1m"][long]["err"], p7["hops"]["err"],
                             p6["engine"][f"search_many_{long}"]["slot_err"]),
          "ms": p6["k3_1m"][long]["ms"], "plain_ms": p6["k3_1m"][long]["plain_ms"],

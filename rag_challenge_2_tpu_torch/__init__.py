@@ -17,10 +17,17 @@ Layout (bottom-up):
     retrieval/  routing, graph traversal (ssg, triangulation), the query
                 engine (all four methods, hybrid BM25, IVF probe arm,
                 f32/bf16/int8 stores, search_many, materialize_details),
-                the standalone BM25 retriever
-    serving/    the micro-batcher over search_many
-    eval/       the chunk-to-chunk similarity matrix
+                the standalone BM25 retriever, query expansion (HyDE,
+                multi-query)
+    llm/        prompts, schemas, chat providers (the offline stub among
+                them), the answering facade, the reranker (host code)
+    qa/         QuestionsProcessor: retrieval → rerank → page selection →
+                schema-typed answer, batch runs and submission files
+    serving/    the micro-batcher over search_many, the web QA frontend
+    eval/       the chunk-to-chunk similarity matrix, the LLM judge, the
+                submission scorer
     models/     the transformer encoder (inference)
+    cli.py      ``query`` (one-shot retrieval) and ``serve`` (the web app)
     csrc/       the hand-written CUDA kernels for sm_90a
 """
 

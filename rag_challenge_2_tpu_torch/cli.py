@@ -1,4 +1,5 @@
-"""Command line: one-shot retrieval over a saved index.
+"""Command line: one-shot retrieval over a saved index, and the web QA
+server.
 
     python -m rag_challenge_2_tpu_torch query --index PATH --company NAME \
         --question TEXT [--use-bm25] [--top-n 5] [--params ENCODER.npz] \
@@ -6,6 +7,11 @@
          [--max-hops 4] [--neighbor-k 30]] \
         [--use-ivf [--ivf-nprobe 8] [--cluster-order]] \
         [--quantize-int8] [--scan-rt RT] [--device cuda|cpu]
+
+    python -m rag_challenge_2_tpu_torch serve --index PATH \
+        [--params ENCODER.npz] [--company 金盘科技] [--method M] \
+        [--use-bm25] [--llm-reranking] [--micro-batch N] [--provider stub] \
+        [--host 127.0.0.1] [--port 8899] [--device cuda|cpu]
 
 Mirrors the reference's ``main.py query``: load the index, embed the
 question with the in-repo encoder (random weights from a seed unless a
@@ -20,6 +26,12 @@ index file (by fingerprint), else one is built on the device and saved.
 (``index.store.quantize_index``) and ``--scan-rt`` sets
 ``SearchConfig.scan_rt``: the counterparts of the reference's
 ``RunConfig.quantize_int8`` / ``scan_rt``.
+
+``serve`` is the counterpart of ``main.py serve``: the web QA frontend
+(``serving.webapp.QAWebApp``) over a ``QuestionsProcessor`` on the loaded
+index, with the encoder's ``embed`` as the embedder and the chat provider
+``--provider`` names (``stub``, the offline provider, by default; the
+others read their endpoint and key from the environment).
 """
 
 from __future__ import annotations
@@ -88,7 +100,40 @@ def _with_ivf(eng, index_path: Path, args: argparse.Namespace):
     return eng.cluster_order() if args.cluster_order else eng
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def build_server(args: argparse.Namespace):
+    """The ``serve`` command's HTTP server (not yet serving): the index,
+    the encoder and the provider as ``query`` and ``main.py serve`` build
+    them."""
+    from .index.store import load_index
+    from .llm import LLMFacade, LLMReranker, get_provider
+    from .models.encoder import (
+        EmbeddingModel, EncoderConfig, from_jax_params, load_params_npz)
+    from .qa import QAConfig, QuestionsProcessor
+    from .retrieval.engine import QueryEngine
+    from .serving import QAWebApp
+
+    idx, meta = load_index(args.index, device=args.device)
+    if meta is None:
+        raise SystemExit(f"{args.index}.meta.json is missing")
+    params = (from_jax_params(load_params_npz(args.params))
+              if args.params else None)
+    # random weights from seed 0 without --params, as `query` by default
+    model = EmbeddingModel(
+        EncoderConfig(), params=params, device=args.device,
+        generator=torch.Generator().manual_seed(0),
+    )
+    provider = get_provider(args.provider)
+    cfg = QAConfig(retrieval_method=args.method, use_bm25=args.use_bm25,
+                   llm_reranking=args.llm_reranking,
+                   micro_batch=args.micro_batch)
+    processor = QuestionsProcessor(
+        QueryEngine(idx, meta), model.embed, LLMFacade(provider),
+        LLMReranker(provider) if args.llm_reranking else None, cfg)
+    app = QAWebApp(processor, default_company=args.company)
+    return app.make_server(args.host, args.port)
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="rag_challenge_2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     q = sub.add_parser("query", help="one-shot retrieval over a saved index")
@@ -118,7 +163,43 @@ def main(argv: Optional[List[str]] = None) -> None:
     q.add_argument("--scan-rt", type=float, default=None,
                    help="SearchConfig.scan_rt (accepted; the scan stays exact)")
     q.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
+
+    s = sub.add_parser("serve", help="the web QA frontend over a saved index")
+    s.add_argument("--index", required=True, help="corpus .npz (save_index)")
+    s.add_argument("--params", default=None,
+                   help="encoder weights npz (reference save_params format)")
+    s.add_argument("--company", default="金盘科技",
+                   help="the company of questions that name none")
+    s.add_argument("--method", default="basic",
+                   choices=["basic", "ssg", "triangulation", "hybrid_expansion"],
+                   help="the default retrieval method (the web form may change it)")
+    s.add_argument("--use-bm25", action="store_true",
+                   help="fuse sparse BM25 hits into the dense results")
+    s.add_argument("--llm-reranking", action="store_true",
+                   help="rerank the retrieved pages with the LLM")
+    s.add_argument("--micro-batch", type=int, default=0,
+                   help="coalesce concurrent same-route searches into one "
+                        "stacked dispatch of at most N requests (0 = off)")
+    s.add_argument("--provider", default="stub",
+                   help="chat provider: stub (offline), qwen, openai, "
+                        "dashscope or gemini")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8899)
+    s.add_argument("--device", default="cuda")
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.command == "serve":
+        server = build_server(args)
+        host, port = server.server_address[:2]
+        print(f"QA web app listening on http://{host}:{port}", flush=True)
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+        return
     for line in query(args):
         print(line)
 

@@ -1,3 +1,5 @@
-"""The serving path's host-side pieces."""
+"""The serving path's host-side pieces: the micro-batcher and the web QA
+frontend."""
 
 from .batcher import MicroBatcher
+from .webapp import QAWebApp, serve

@@ -122,3 +122,38 @@ def test_query_method_on_the_int8_index_and_unknown_method(saved_index, capsys):
     assert len(capsys.readouterr().out.splitlines()) == 3
     with pytest.raises(SystemExit):
         _query(saved_index, "--method", "random_walk")
+
+
+def test_serve_builds_the_web_app_and_answers(saved_index):
+    """``serve`` on port 0 with ``--device cpu``: the page, the question bank
+    and one ask through the stub provider over the loaded index."""
+    import threading
+    import urllib.request
+
+    args = cli.build_parser().parse_args([
+        "serve", "--index", str(saved_index), "--device", "cpu", "--port", "0",
+        "--use-bm25", "--llm-reranking", "--micro-batch", "2"])
+    server = cli.build_server(args)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{server.server_port}"
+    try:
+        assert "PyTorch + CUDA" in urllib.request.urlopen(url + "/", timeout=60).read().decode()
+        req = urllib.request.Request(
+            url + "/api/ask", json.dumps({"question": "2024年营业收入是多少",
+                                          "llm_reranking": True}).encode(),
+            headers={"Content-Type": "application/json"})
+        out = json.loads(urllib.request.urlopen(req, timeout=300).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    t.join(timeout=10)
+    assert not t.is_alive()
+    assert "error" not in out, out
+    # the stub answers nothing: the schema's safe default, with pages
+    # validated against what the 金盘科技 route retrieved
+    assert out["final_answer"] == "N/A" and out["relevant_pages"]
+    assert {c["source_sha1"] for c in out["all_retrieved_chunks"]} <= {
+        "J2023_doc0", "J2024_doc1"}
+    assert out["reranker_stats"]["total_requests"] > 0
+    assert out["timing"]["vector_search"] > 0

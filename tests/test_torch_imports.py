@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it never reaches jax, flax or the JAX
-package, and its host copies (tokenizer, SearchConfig) equal the
+package (a search and a question answered through the QA layer with those
+blocked), and its host copies (tokenizer, SearchConfig) equal the
 originals."""
 
 import dataclasses
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# every module of the port, plus a tiny CPU search through the public API
+# every module of the port, plus a tiny CPU search and one answered
+# question through the public API
 _NO_JAX_PROGRAM = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "rag_challenge_2_tpu"):
@@ -45,6 +47,21 @@ res = eng.materialize(eng.search(embs[1][2:3], "金盘科技", "营业收入",
                                  selected_years=[2024], cfg=cfg,
                                  query_texts=["chunk2"]), cfg)
 assert res[0]["rep_row"] == 8, res
+# the QA layer on the same engine: a stub LLM answers one question
+import json
+from rag_challenge_2_tpu_torch.llm import LLMFacade, LLMReranker, RateLimiter, StubProvider
+from rag_challenge_2_tpu_torch.qa import QAConfig, QuestionsProcessor
+stub = StubProvider({"上下文": json.dumps({
+    "step_by_step_analysis": "s", "reasoning_summary": "r",
+    "relevant_pages": [1], "final_answer": 68.9})})
+rr = LLMReranker(stub)
+rr.rate_limiter = RateLimiter(0)
+proc = QuestionsProcessor(eng, lambda texts: np.repeat(embs[1][2:3], len(texts), 0),
+                          LLMFacade(stub), rr,
+                          QAConfig(use_bm25=True, llm_reranking=True))
+ans = proc.process_question("金盘科技2024年营业收入是多少", "number")
+assert ans["final_answer"] == 68.9 and ans["references"], ans
+assert json.loads(json.dumps(ans))["final_answer"] == 68.9
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "rag_challenge_2_tpu")
        and sys.modules[m] is not None]

@@ -96,7 +96,24 @@ without printing a result:
    ones; ms per ask, the processor's stages, asks/s serial and at 8
    concurrent, the busy share of one ask.  Any reply carrying ``error``
    fails the run.
-9. the last line: ``{"ok": true, "device": {...}}``.
+9. the ingestion pipeline, the CLI and the end-to-end eval on the card
+   (right after phase 8, with its full-width encoder): (a) the README's
+   sequence through the port's CLI in subprocesses (parse-pdfs →
+   process-reports → query → process-questions → serve + 2 asks over
+   HTTP) on copies of ``data/test_set``, with ``--device cuda`` against
+   ``--device cpu``; (b) ``Pipeline`` at the deployment size (six synthetic
+   reports of ~1,700 chunks, one of them a PDF read by ``minipdf``): every
+   stage timed, the card's index equal to the CPU's, three presets
+   (``offline`` + BM25: K1 + K2; + ``quantize_int8``: K3 int8 + K2; the
+   ``scale10m`` flags: K4 + K2) answering 16 questions each against a
+   CPU ``Pipeline`` over the same root, each kernel's first call on this
+   path against its plain version, launches per question, busy shares;
+   (c) ``add_reports`` of a seventh report into that index (f32 and int8)
+   against a fresh build of all seven; (d) ``run_e2e`` over the 17 golden
+   questions on the card against the CPU; (e) wide k: ``neighbor_k = 100``
+   traversal asks and ``query --top-n 100`` against the CPU, through
+   ``ops.topk.wide_topk``.
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Weights are random from ``--seed`` unless a
 ``save_params`` npz is given.
@@ -3017,6 +3034,633 @@ def phase8_qa(dev, model, ctx3, card):
     return out
 
 
+# --------------------------------------------------------------- phase 9
+
+PIPE_PAGES = 480            # pages a synthetic report: ~1,700 chunks of ~310 chars
+PIPE_TXT_YEARS = (2020, 2021, 2022, 2023, 2024)
+PIPE_PDF_YEAR = 2025        # the sixth report goes through write_pdf → minipdf
+PIPE_ADD_YEAR = 2019        # 9c's seventh report
+# what the JAX package's run_e2e gives on the CPU over the same fixture:
+# tests/test_torch_e2e.py::test_run_e2e_matches_jax holds the port to it
+# per question (a narrow encoder on shared weights) and asserts these
+JAX_E2E_CPU = {"value_accuracy": 1.0, "page_hit": 1.0, "n": 17}
+CLI_TOL = 1e-2              # scores of two independent encoders (card, CPU)
+
+
+def synthetic_pages(rng, year, n_pages=PIPE_PAGES, paras=6):
+    """One synthetic annual report: pages of paragraphs from phase 3's
+    templates, each page headed by its number."""
+    pages = []
+    for p in range(n_pages):
+        body = []
+        for _ in range(paras):
+            body.append("".join(
+                TEMPLATES[int(rng.integers(len(TEMPLATES)))].format(
+                    y=year, m=METRICS[int(rng.integers(len(METRICS)))],
+                    s=SEGMENTS[int(rng.integers(len(SEGMENTS)))],
+                    v=float(rng.uniform(0.1, 90)), p=float(rng.uniform(0.1, 60)),
+                    d="增长" if rng.random() < 0.7 else "下降",
+                    q=int(rng.integers(1, 5)))
+                for _ in range(int(rng.integers(4, 8)))))
+        pages.append(f"{COMPANY}{year}年年度报告 第{p + 1}页\n\n" + "\n\n".join(body))
+    return pages
+
+
+def write_pipeline_root(root, rng, n_pages=PIPE_PAGES, n_questions=16):
+    """The data-set layout of BASELINE configs 1-2 at the deployment size:
+    five reports as ``.txt`` (form-feed page breaks) and one as a PDF,
+    ``subset.csv`` and ``questions.json``."""
+    from rag_challenge_2_tpu_torch.eval.e2e import write_pdf
+
+    (root / "pdf_reports").mkdir(parents=True)
+    rows = ["sha1,company_name,year"]
+    for year in PIPE_TXT_YEARS + (PIPE_PDF_YEAR,):
+        pages = synthetic_pages(rng, year, n_pages)
+        sha = f"J{year}_jinpan"
+        if year == PIPE_PDF_YEAR:
+            (root / "pdf_reports" / f"{sha}.pdf").write_bytes(write_pdf(pages))
+        else:
+            (root / "pdf_reports" / f"{sha}.txt").write_text("\f".join(pages),
+                                                             encoding="utf-8")
+        rows.append(f"{sha},{COMPANY},{year}")
+    (root / "subset.csv").write_text("\n".join(rows) + "\n", encoding="utf-8")
+    questions = [{"question": f"{COMPANY}{2021 + i % 4}年"
+                              f"{METRICS[int(rng.integers(len(METRICS)))]}是多少？",
+                  "schema": "number"} for i in range(n_questions)]
+    (root / "questions.json").write_text(json.dumps(questions, ensure_ascii=False),
+                                         encoding="utf-8")
+    return questions
+
+
+class EmbedOnce:
+    """The encoder's embeddings, computed once per text on the card and
+    shared with the CPU's pipeline (the CPU encoder is held to the card's
+    on a sample instead: full width on the host is too slow for 10,200
+    chunks).  Counts the texts it embedded and the seconds it took."""
+
+    def __init__(self, model, dev):
+        self.model, self.dev = model, dev
+        self.rows, self.texts, self.seconds = {}, 0, 0.0
+
+    def __call__(self, texts):
+        import numpy as np
+
+        new = [t for t in dict.fromkeys(texts) if t not in self.rows]
+        if new:
+            out, t = wall(lambda: self.model.embed(new), self.dev)
+            self.rows.update(zip(new, out))
+            self.texts += len(new)
+            self.seconds += t
+        return np.stack([self.rows[t] for t in texts])
+
+    def cached(self, texts):
+        """The CPU's side: only texts the card embedded (KeyError else)."""
+        import numpy as np
+
+        return np.stack([self.rows[t] for t in texts])
+
+
+# the places the pipeline's path looks each kernel wrapper up at call time
+_KERNEL_SEATS = (
+    ("dense_topk", "rag_challenge_2_tpu_torch.ops.dense_topk", "dense_topk_fused"),
+    ("stream_topk", "rag_challenge_2_tpu_torch.ops.stream_topk", "stream_topk"),
+    ("span_gather", "rag_challenge_2_tpu_torch.ops.bm25", "gather_posting_spans"),
+    ("span_gather", "rag_challenge_2_tpu_torch.index.ivf", "gather_posting_spans"),
+    ("probe_scores", "rag_challenge_2_tpu_torch.index.ivf", "probe_span_scores"),
+)
+
+
+class FirstCalls:
+    """Records each kernel wrapper's first call (its arguments) while the
+    pipeline runs, so that the kernel is held against its plain version at
+    the shapes this path gives it.  Read the launch counts after leaving
+    the block: inside it the modules hold the recorders.  A wrapper counts
+    its launches through its own module's global name, so where the seat
+    is that module the recorder carries the counters and hands them back
+    on exit."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for name, mod_name, attr in _KERNEL_SEATS:
+            mod = importlib.import_module(mod_name)
+            real = getattr(mod, attr)
+            home = real.__module__ == mod.__name__
+
+            def rec(*a, _real=real, _name=name, **kw):
+                self.calls.setdefault(_name, (a, kw))
+                return _real(*a, **kw)
+
+            if home:
+                rec.__dict__.update(real.__dict__)      # launches, K3's regime dict
+            self.saved.append((mod, attr, real, rec if home else None))
+            setattr(mod, attr, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real, rec in self.saved:
+            if rec is not None:
+                real.launches = rec.launches
+            setattr(mod, attr, real)
+        return False
+
+
+def check_first_calls(where, calls):
+    """Each recorded kernel call against its plain version: K1 and K3's
+    float forms within 1e-4 (rows equal where untied), K3's int8 forms, K2
+    and K4's int8 form bitwise.  Returns the max abs error by kernel."""
+    import torch
+
+    from rag_challenge_2_tpu_torch.ops.span_gather import (
+        gather_posting_spans, gather_posting_spans_plain)
+
+    errs = {}
+    for name, (a, kw) in calls.items():
+        if name == "dense_topk":
+            errs[name] = compare_k1(where, *a, **kw)[0]
+        elif name == "stream_topk":
+            errs[name] = compare_k3(where, *a, exact=a[1].dtype == torch.int8, **kw)[0]
+        elif name == "probe_scores":
+            errs[name] = compare_k4(where, *a, kw["window"])
+        else:
+            got = gather_posting_spans(*a, **kw)
+            ref = gather_posting_spans_plain(*a, **kw)
+            check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                  f"K2 {where}: not bitwise equal to plain")
+            errs[name] = 0.0
+    return errs
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli_chain(device, root, env):
+    """The README's sequence through the port's command line in
+    subprocesses: parse-pdfs → process-reports → query (with BM25) →
+    process-questions --config offline → serve --config offline with two
+    asks over HTTP (the wide route's ``query --top-n 100`` is phase 9e's).  Returns what each
+    printed or answered."""
+    import os
+    import signal
+
+    def run(*args):
+        out = subprocess.run(
+            [sys.executable, "-m", "rag_challenge_2_tpu_torch", *args, "--root", str(root),
+             "--device", device], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        check(out.returncode == 0, f"CLI {args[0]} on {device}: {out.stderr[-2000:]}")
+        return out.stdout
+
+    res = {}
+    for stage in ("parse-pdfs", "process-reports"):
+        t0 = time.perf_counter()
+        run(stage)
+        res[stage] = time.perf_counter() - t0
+    q = ("--company", COMPANY, "--question", f"{COMPANY}2024年营业收入是多少？")
+    res["query"] = run("query", *q, "--use-bm25")
+    res["stats"] = json.loads(run("process-questions", "--config", "offline")
+                              .strip().splitlines()[-1])
+    res["answers"] = json.loads((root / "answers_offline_01.json").read_text("utf-8"))
+    port = _free_port()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "rag_challenge_2_tpu_torch", "serve", "--root", str(root),
+         "--config", "offline", "--port", str(port), "--device", device],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        line = ""
+        while "listening" not in line:
+            line = server.stdout.readline()
+            if not line and server.poll() is not None:
+                raise SmokeError(f"serve on {device} ended: {server.stderr.read()[-2000:]}")
+        url = f"http://127.0.0.1:{port}"
+        res["asks"] = [http_call(url, "/api/ask", {"question": question})
+                       for question in (f"{COMPANY}2024年营业收入是多少？",
+                                        f"{COMPANY}2023年研发费用是多少？")]
+    finally:
+        os.killpg(server.pid, signal.SIGKILL)
+        server.wait(timeout=30)
+        server.stdout.close()
+        server.stderr.close()
+    return res
+
+
+QUERY_LINE = re.compile(r"^\[(-?[0-9.]+)\] (\S+) p(\d+) hits=(\d+) methods=(\d+): ")
+
+
+def same_query_lines(name, got, ref, tol):
+    """Two ``query`` printouts: scores within ``tol`` rank by rank, the
+    (document, page, hits, methods) identical up to the order inside groups
+    of scores tied within ``tol``."""
+    parse = [[m.groups() for m in map(QUERY_LINE.match, out.splitlines()) if m]
+             for out in (got, ref)]
+    check(parse[0] and len(parse[0]) == len(parse[1]),
+          f"{name}: {len(parse[0])} hits against {len(parse[1])}")
+    gs, rs = ([float(g[0]) for g in p] for p in parse)
+    err = max(abs(a - b) for a, b in zip(gs, rs))
+    check(err <= tol, f"{name}: scores differ by {err}")
+    i = 0
+    while i < len(rs):
+        j = i + 1
+        while j < len(rs) and abs(rs[j] - rs[j - 1]) <= 2 * tol:
+            j += 1
+        if j < len(rs):
+            check(sorted(g[1:] for g in parse[0][i:j]) == sorted(r[1:] for r in parse[1][i:j]),
+                  f"{name}: hits differ at ranks {i}..{j}")
+        i = j
+    return len(rs), err
+
+
+def same_submissions(name, got, ref):
+    """Two submission files: every answer's value and references equal."""
+    ga, ra = got["answers"], ref["answers"]
+    check(len(ga) == len(ra) and len(ga) > 0, f"{name}: {len(ga)} answers vs {len(ra)}")
+    for a, b in zip(ga, ra):
+        key = [(x["value"], [(r["pdf_sha1"], r["page_index"]) for r in x["references"]])
+               for x in (a, b)]
+        check(key[0] == key[1], f"{name}: {a['question_text']}: {key[0]} vs {key[1]}")
+
+
+def phase9a_cli(work, card="cuda"):
+    """The port's command line on two copies of ``data/test_set``, one
+    driven with ``--device cuda`` (``card``) and one with ``--device cpu``
+    (in parallel: the CPU chain never touches the card)."""
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    log("== phase 9a: the CLI on data/test_set, --device cuda and --device cpu")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), RAGTPU_AUTO_PRETRAIN="0")
+    roots, devices = {}, {"cuda": card, "cpu": "cpu"}
+    for label in devices:
+        roots[label] = work / f"cli_{label}"
+        shutil.rmtree(roots[label], ignore_errors=True)
+        shutil.copytree(ROOT / "data" / "test_set", roots[label])
+    with ThreadPoolExecutor(2) as ex:
+        futs = {d: ex.submit(cli_chain, devices[d], roots[d], env) for d in roots}
+        res = {d: f.result() for d, f in futs.items()}
+    g, c = res["cuda"], res["cpu"]
+    for sub in ("debug_data/01_parsed_reports", "debug_data/02_merged_reports",
+                "databases/chunked_reports"):
+        for f in sorted((roots["cpu"] / sub).iterdir()):
+            check((roots["cuda"] / sub / f.name).read_bytes() == f.read_bytes(),
+                  f"{sub}/{f.name} differs between the two runs")
+    n5, e5 = same_query_lines("query", g["query"], c["query"], CLI_TOL)
+    check(g["stats"] == c["stats"] and g["stats"]["error_count"] == 0,
+          f"process-questions: {g['stats']} vs {c['stats']}")
+    same_submissions("process-questions answers", g["answers"], c["answers"])
+    for i, (a, b) in enumerate(zip(g["asks"], c["asks"])):
+        key = [(x["final_answer"], [(r["pdf_sha1"], r["page_index"]) for r in x["references"]])
+               for x in (a, b)]
+        check(key[0] == key[1], f"serve ask {i}: {key[0]} vs {key[1]}")
+    out = dict(seconds=time.perf_counter() - t0, query_hits=n5,
+               query_err=e5, stats=g["stats"],
+               stage_s={d: {k: res[d][k] for k in ("parse-pdfs", "process-reports")}
+                        for d in res})
+    log(f"CLI: parse-pdfs, process-reports, query ({n5} hits, scores within "
+        f"{out['query_err']:.2e} of the CPU's), process-questions "
+        f"({g['stats']}), serve + 2 asks: --device cuda == --device cpu "
+        f"(stage seconds {out['stage_s']}); phase 9a took {out['seconds']:.1f} s")
+    return out
+
+
+def pipeline_presets():
+    import dataclasses
+
+    from rag_challenge_2_tpu_torch.pipeline import configs
+
+    serial = dict(parallel_requests=1)          # the launch counters are unlocked
+    return {
+        # BASELINE configs 1-2: the served hybrid (K1 + K2)
+        "offline+bm25": dataclasses.replace(configs["offline"], use_bm25_db=True, **serial),
+        # the int8 flat store (K3's int8 form + K2)
+        "offline+bm25+int8": dataclasses.replace(configs["offline"], use_bm25_db=True,
+                                                 quantize_int8=True, **serial),
+        # the scale10m preset's flags: IVF probes over the cluster-ordered
+        # int8 store (K4 + K2)
+        "scale10m": dataclasses.replace(configs["scale10m"], **serial),
+    }
+
+
+def phase9b_pipeline(dev, model, work, rng, n_pages=PIPE_PAGES):
+    """BASELINE configs 1-2 through ``Pipeline`` at the deployment size:
+    every stage on the card, timed; three presets answer 16 questions each,
+    every answer held against a ``Pipeline`` on the CPU over the same root
+    (the same embeddings), each kernel's first call on this path held
+    against its plain version, launches per question counted."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from rag_challenge_2_tpu_torch.eval.e2e import ExtractiveStubProvider
+    from rag_challenge_2_tpu_torch.index import load_index
+    from rag_challenge_2_tpu_torch.index.build import load_chunked_reports
+    from rag_challenge_2_tpu_torch.ingestion import CorpusIngestor
+    from rag_challenge_2_tpu_torch.models.encoder import EmbeddingModel
+    from rag_challenge_2_tpu_torch.pipeline import Pipeline
+
+    log("== phase 9b: the pipeline at the deployment's size (Pipeline, BASELINE configs 1-2)")
+    t_phase = time.perf_counter()
+    root = work / "pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    questions = write_pipeline_root(root, rng, n_pages)
+    embed = EmbedOnce(model, dev)
+    presets = pipeline_presets()
+    pipe = Pipeline(root, presets["offline+bm25"], embedder=embed,
+                    provider=ExtractiveStubProvider(), device=dev)
+    stage_s = {}
+    for stage in ("parse_pdf_reports", "merge_reports", "chunk_reports"):
+        _, stage_s[stage] = wall(getattr(pipe, stage), dev)
+    reports = load_chunked_reports(pipe.paths.documents_dir)
+    n_chunks = sum(len(r["content"]["chunks"]) for r in reports)
+    pdf_pages = len(next(r for r in reports if r["metainfo"]["sha1_name"]
+                         == f"J{PIPE_PDF_YEAR}_jinpan")["content"]["pages"])
+    check(pdf_pages == n_pages, f"minipdf: {pdf_pages} pages of {n_pages}")
+    wall_ms, dev_ms = busy_share(pipe.create_vector_dbs)
+    stage_s["create_vector_dbs"] = wall_ms / 1e3
+    busy = {"create_vector_dbs": dev_ms / wall_ms if dev_ms else None}
+    embed_rate = embed.texts / embed.seconds
+    log(f"{len(reports)} reports ({n_pages} pages each, one a PDF), {n_chunks} chunks; "
+        f"embedded {embed.texts} texts in {embed.seconds:.2f} s = {embed_rate:.0f} chunks/s "
+        f"(full-width encoder)")
+
+    # the CPU's index from the same chunks and embeddings: CSR and columns
+    # bitwise, rows bitwise (one embedding per text)
+    idx, meta = load_index(pipe.paths.index_path, device=dev)
+    ref, ref_meta = CorpusIngestor(embed.cached, device="cpu").build(reports)
+    for name in ("emb", "doc_id", "page", "year", "company_id", "kind", "page_seg",
+                 "chunk_in_doc", "valid"):
+        check(torch.equal(getattr(idx, name).cpu(), getattr(ref, name)),
+              f"the card's index differs from the CPU's in {name}")
+    for name in ("indptr", "chunk_ids", "tf", "df", "chunk_len", "dl"):
+        check(torch.equal(getattr(idx.sparse, name).cpu(), getattr(ref.sparse, name)),
+              f"the card's CSR differs from the CPU's in {name}")
+    check(meta.chunk_texts == ref_meta.chunk_texts and meta.companies == ref_meta.companies,
+          "the index's metadata differs from the CPU's")
+    # the encoder itself, card against CPU, on a sample of chunks
+    sample = meta.chunk_texts[:: max(1, n_chunks // 12)][:12]
+    cpu_model = EmbeddingModel(model.cfg, params=model.module.state_dict(), device="cpu")
+    a, b = model.embed(sample), cpu_model.embed(sample)
+    cos = float(((a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min())
+    enc_err = float(np.abs(a - b).max())
+    check(cos >= 0.999 and enc_err <= 0.02,
+          f"the encoder on the card against the CPU: cos {cos}, max diff {enc_err}")
+    log(f"the card's index == the CPU's (CSR, columns and rows bitwise, n_pad {idx.n_pad}, "
+        f"nnz_pad {idx.sparse.chunk_ids.shape[0]}); the encoder on {len(sample)} chunks: "
+        f"cos >= {cos:.6f}, max |diff| {enc_err:.2e} against the CPU")
+    del idx, ref
+
+    out = dict(chunks=n_chunks, reports=len(reports), pdf_pages=pdf_pages,
+               embed_chunks_s=embed_rate, presets={})
+    launches_total = dict.fromkeys(("dense_topk", "span_gather", "stream_topk",
+                                    "probe_scores"), 0)
+    errs, seen_kernels = {}, {}
+    for name, rc in presets.items():
+        gp = Pipeline(root, rc, embedder=embed, provider=ExtractiveStubProvider(),
+                      device=dev)
+        proc, t_build = wall(gp.build_processor, dev)
+        payloads = {}
+        real = proc.process_question
+
+        def recorded(text, schema, _real=real, _out=payloads):
+            _out[text] = _real(text, schema)
+            return _out[text]
+
+        proc.process_question = recorded
+        gp.build_processor = lambda _p=proc: _p
+        zero_counts()
+        with FirstCalls() as first:
+            result, t_q = wall(gp.process_questions, dev)
+        counts = read_counts()
+        failed = [d for d in result["answer_details"] if d and "error_traceback" in d]
+        check(not failed, f"{name}: {result['statistics']}; the first error: "
+              + (failed[0]["error_traceback"][-3000:] if failed else ""))
+        errs.update({f"{name} {k}": v for k, v in
+                     check_first_calls(f"{name} (pipeline)", first.calls).items()})
+        seen_kernels.update(first.calls)
+        payloads_once = dict(payloads)
+        w_ms, d_ms = busy_share(lambda: proc.process_question(
+            questions[0]["question"], questions[0]["schema"]))
+        # the CPU's pipeline over the same root and embeddings
+        cp = Pipeline(root, rc, embedder=embed.cached, provider=ExtractiveStubProvider(),
+                      device="cpu")
+        cproc = cp.build_processor()
+        tied = sum(same_ask(f"{name}: {q['question']}",
+                            json.loads(json.dumps(payloads_once[q["question"]],
+                                                  ensure_ascii=False)),
+                            json.loads(json.dumps(cproc.process_question(
+                                q["question"], q["schema"]), ensure_ascii=False)),
+                            K1_TOL)
+                   for q in questions)
+        check(tied <= 1, f"{name}: {tied} of {len(questions)} answers behind a reordered tie")
+        per_q = {k: v / len(questions) for k, v in counts.items()}
+        for k, v in counts.items():
+            launches_total[k] += v
+        out["presets"][name] = dict(
+            build_processor_s=t_build, process_questions_s=t_q,
+            ms_per_question=t_q / len(questions) * 1e3, launches_per_question=per_q,
+            busy_one_question=d_ms / w_ms if d_ms else None, tied=tied,
+            stats=result["statistics"])
+        log(f"{name}: build_processor {t_build:.2f} s, process_questions "
+            f"{t_q:.2f} s ({t_q / len(questions) * 1e3:.1f} ms a question), launches a "
+            f"question {per_q}, busy over one question "
+            + (f"{100 * d_ms / w_ms:.1f}%" if d_ms else "not measured")
+            + f"; {len(questions)} answers == the CPU pipeline's (reordered ties: {tied}); "
+            f"{result['statistics']}")
+    missing = [k for k, v in launches_total.items() if v == 0 or k not in seen_kernels]
+    check(not missing, f"phase 9b's pipeline path never launched {missing}")
+    out.update(stage_s=stage_s, busy=busy, kernel_errs=errs,
+               launches_per_question={k: v / len(questions) for k, v in launches_total.items()},
+               seconds=time.perf_counter() - t_phase)
+    busy["process_questions"] = out["presets"]["offline+bm25"]["busy_one_question"]
+    log("stage wall times (s): " + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
+        + "; card busy during create_vector_dbs "
+        + (f"{100 * busy['create_vector_dbs']:.1f}%" if busy["create_vector_dbs"]
+           else "not measured"))
+    log(f"kernels at phase 9b's shapes against plain: {errs}; phase 9b took "
+        f"{out['seconds']:.1f} s")
+    return out, dict(root=root, embed=embed, reports=reports, questions=questions)
+
+
+def phase9c_add_reports(dev, ctx, rng, n_pages=PIPE_PAGES):
+    """BASELINE config 4: ``CorpusIngestor.add_reports`` of a seventh report
+    (parsed, merged and chunked by the pipeline's host stages) into 9b's
+    index on the card, held against a fresh build of all seven: columns,
+    CSR and metadata equal, rows bitwise; then the same into the int8
+    variant of the index (the dequantized path)."""
+    import dataclasses
+
+    import torch
+
+    from rag_challenge_2_tpu_torch.index import load_index, quantize_index
+    from rag_challenge_2_tpu_torch.ingestion import (
+        CorpusIngestor, PageTextPreparation, PlainTextParser, TextSplitter)
+
+    log("== phase 9c: incremental ingest (add_reports, BASELINE config 4)")
+    t0 = time.perf_counter()
+    side = ctx["root"] / "added"
+    (side / "in").mkdir(parents=True)
+    sha = f"J{PIPE_ADD_YEAR}_jinpan"
+    (side / "in" / f"{sha}.txt").write_text("\f".join(synthetic_pages(
+        rng, PIPE_ADD_YEAR, n_pages)), encoding="utf-8")
+    (side / "subset.csv").write_text(f"sha1,company_name,year\n{sha},{COMPANY},"
+                                     f"{PIPE_ADD_YEAR}\n", encoding="utf-8")
+    PlainTextParser(side / "parsed", side / "subset.csv").parse_and_export(
+        [side / "in" / f"{sha}.txt"])
+    PageTextPreparation().process_reports(side / "parsed", side / "merged")
+    TextSplitter().split_all_reports(side / "merged", side / "chunked")
+    new = json.loads((side / "chunked" / f"{sha}.json").read_text("utf-8"))
+    n_new = len(new["content"]["chunks"])
+    embed = ctx["embed"]
+    ing = CorpusIngestor(embed, device=dev)
+    idx, meta = load_index(ctx["root"] / "databases" / "corpus_index.npz", device=dev)
+    before = (embed.texts, embed.seconds)
+    (got, got_meta), t_add = wall(lambda: ing.add_reports(idx, meta, [new]), dev)
+    added = embed.texts - before[0]
+    rate = added / (embed.seconds - before[1])
+    check(added == len(set(c["text"] for c in new["content"]["chunks"])),
+          f"add_reports embedded {added} texts for {n_new} new chunks")
+    fresh, fresh_meta = ing.build(ctx["reports"] + [new])
+    cols = ("emb", "doc_id", "page", "year", "company_id", "kind", "page_seg",
+            "chunk_in_doc", "valid")
+    for name in cols:
+        check(torch.equal(getattr(got, name), getattr(fresh, name)),
+              f"add_reports: {name} differs from a fresh build")
+    for name in ("indptr", "chunk_ids", "tf", "df", "chunk_len", "dl"):
+        check(torch.equal(getattr(got.sparse, name), getattr(fresh.sparse, name)),
+              f"add_reports: CSR {name} differs from a fresh build")
+    check(dataclasses.asdict(got_meta) == dataclasses.asdict(fresh_meta),
+          "add_reports: metadata differs from a fresh build")
+    q8 = quantize_index(idx)
+    (got8, got8_meta), t_add8 = wall(lambda: ing.add_reports(q8, meta, [new]), dev)
+    n_old = idx.n_chunks
+    deq = q8.emb[:n_old].float() * q8.emb_scale[:n_old, None]
+    check(torch.equal(got8.emb[:n_old], deq) and torch.equal(got8.emb[n_old:], fresh.emb[n_old:]),
+          "add_reports on the int8 index: rows are not the dequantized old + the new")
+    for name in cols[1:]:
+        check(torch.equal(getattr(got8, name), getattr(fresh, name)),
+              f"add_reports on the int8 index: {name} differs from a fresh build")
+    check(torch.equal(got8.sparse.chunk_ids, fresh.sparse.chunk_ids)
+          and dataclasses.asdict(got8_meta) == dataclasses.asdict(fresh_meta),
+          "add_reports on the int8 index: CSR or metadata differs")
+    out = dict(n_old=n_old, n_new=n_new, add_s=t_add, add_int8_s=t_add8,
+               embed_chunks_s=rate, seconds=time.perf_counter() - t0)
+    log(f"add_reports: {n_new} new chunks into {n_old} on the card in {t_add:.2f} s "
+        f"(embedding {rate:.0f} chunks/s; int8 index {t_add8:.2f} s) == a fresh build of "
+        f"all seven reports (columns, CSR, metadata; f32 rows bitwise, int8: the "
+        f"dequantized old rows + the new); phase 9c took {out['seconds']:.1f} s")
+    return out
+
+
+def phase9d_e2e(dev, work):
+    """The end-to-end eval on the card: ``run_e2e`` over the 17 golden
+    questions of the PDF fixture, against the same run on the CPU."""
+    import shutil
+
+    from rag_challenge_2_tpu_torch.eval.e2e import run_e2e
+
+    log("== phase 9d: the end-to-end eval (run_e2e, 17 golden questions)")
+    runs = {}
+    for label, device in (("cuda", dev), ("cpu", "cpu")):
+        root = work / f"e2e_{label}"
+        shutil.rmtree(root, ignore_errors=True)
+        runs[label], t = wall(lambda: run_e2e(root, device=device), dev)
+        runs[label]["seconds"] = t
+    g, c = runs["cuda"], runs["cpu"]
+    for a, b in zip(g["per_question"], c["per_question"]):
+        check(a == b, f"run_e2e: the card and the CPU differ: {a} vs {b}")
+    check(g["n"] == 17 and g["value_accuracy"] >= 0.9 and g["page_hit"] >= 0.9,
+          f"run_e2e on the card: {g['value_accuracy']} / {g['page_hit']}")
+    log(f"run_e2e on the card: value_accuracy {g['value_accuracy']}, page_hit "
+        f"{g['page_hit']}, n {g['n']} in {g['seconds']:.2f} s; == the CPU's per question "
+        f"({c['seconds']:.2f} s); the JAX package on the CPU (tests/test_torch_e2e.py): "
+        f"{JAX_E2E_CPU}")
+    return {d: {k: r[k] for k in ("value_accuracy", "page_hit", "n", "seconds")}
+            for d, r in runs.items()}
+
+
+def phase9e_wide(dev, ctx):
+    """Wide k on the card: a traversal ask with ``neighbor_k = 100`` (101
+    candidates a hop, above K1's and K3's 64) and ``query --top-n 100``
+    over 9b's index, against the CPU, tie-aware; the route is counted."""
+    import dataclasses
+
+    from rag_challenge_2_tpu_torch import cli
+    from rag_challenge_2_tpu_torch.eval.e2e import ExtractiveStubProvider
+    from rag_challenge_2_tpu_torch.ops.topk import wide_topk
+    from rag_challenge_2_tpu_torch.pipeline import Pipeline
+    from rag_challenge_2_tpu_torch.serving import QAWebApp
+
+    log("== phase 9e: wide k on the card (neighbor_k = 100, top-n 100)")
+    rc = pipeline_presets()["offline+bm25"]
+    apps = {}
+    for label, device, embed in (("cuda", dev, ctx["embed"]),
+                                 ("cpu", "cpu", ctx["embed"].cached)):
+        p = Pipeline(ctx["root"], dataclasses.replace(rc), embedder=embed,
+                     provider=ExtractiveStubProvider(), device=device)
+        apps[label] = QAWebApp(p.build_processor(), default_company=COMPANY)
+    out, tied = {}, 0
+    for method in ("ssg", "hybrid_expansion"):
+        for q in ctx["questions"][:2]:
+            payload = {"question": q["question"], "method": method, "neighbor_k": 100}
+            zero_counts()
+            w0 = wide_topk.launches
+            g = apps["cuda"].ask(dict(payload))
+            counts, wide = read_counts(), wide_topk.launches - w0
+            check("error" not in g, f"{method} neighbor_k 100 on the card: {g.get('error')}")
+            check(wide > 0 and counts["stream_topk"] == 0,
+                  f"{method} neighbor_k 100: wide {wide}, kernels {counts}")
+            c = apps["cpu"].ask(dict(payload))
+            tied += same_ask(f"{method} neighbor_k 100", json.loads(json.dumps(
+                g, ensure_ascii=False)), json.loads(json.dumps(c, ensure_ascii=False)), K1_TOL)
+            out[method] = dict(wide_launches=wide, kernel_launches=counts)
+    check(tied <= 1, f"wide asks: {tied} reordered ties")
+    args = ["query", "--root", str(ctx["root"]), "--company", COMPANY, "--question",
+            ctx["questions"][0]["question"], "--use-bm25", "--top-n", "100"]
+    w0 = wide_topk.launches
+    lines_g = cli.query(cli.build_parser().parse_args(args + ["--device", dev.type]))
+    out["query_100_wide_launches"] = wide_topk.launches - w0
+    lines_c = cli.query(cli.build_parser().parse_args(args + ["--device", "cpu"]))
+    # two encoders embed the question (card, CPU): CLI_TOL
+    n, err = same_query_lines("query --top-n 100", "\n".join(lines_g), "\n".join(lines_c),
+                              CLI_TOL)
+    check(n == 100 and out["query_100_wide_launches"] > 0,
+          f"query --top-n 100: {n} hits, {out['query_100_wide_launches']} wide calls")
+    log(f"neighbor_k 100 asks (ssg, hybrid_expansion; 2 each) == the CPU's (reordered "
+        f"ties: {tied}); wide_topk calls a question {dict((m, out[m]['wide_launches']) for m in ('ssg', 'hybrid_expansion'))}, "
+        f"K3 none; query --top-n 100: {n} hits == the CPU's within {err:.2e}, "
+        f"{out['query_100_wide_launches']} wide_topk calls")
+    return out
+
+
+def phase9_pipeline(dev, model, seed, work, n_pages=PIPE_PAGES):
+    """Phase 9: the ingestion pipeline, the CLI, the end-to-end eval and
+    wide k, on the card (9a-9e)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 9)
+    out = {"cli": phase9a_cli(work, dev.type)}
+    out["pipeline"], ctx = phase9b_pipeline(dev, model, work, rng, n_pages)
+    out["add_reports"] = phase9c_add_reports(dev, ctx, rng, n_pages)
+    out["e2e"] = phase9d_e2e(dev, work)
+    out["wide"] = phase9e_wide(dev, ctx)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 9 took {out['seconds']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None):
@@ -3063,6 +3707,7 @@ def main(argv=None):
     work.mkdir(parents=True, exist_ok=True)
     p3, ctx3 = phase3_main_path(dev, model, np.random.default_rng(args.seed), work)
     p8 = phase8_qa(dev, model, ctx3, card)
+    p9 = phase9_pipeline(dev, model, args.seed, work)
     del model
     torch.cuda.empty_cache()
     p7 = dict(hops=phase7a_hop_shapes(dev, gen), deploy=phase7b_deploy(dev, ctx3),
@@ -3077,10 +3722,19 @@ def main(argv=None):
     p7["int8_10m"] = p6["engine"]["traversal_10m"]
 
     log("summary " + json.dumps({"phase3": p3, "phase4": p4, "phase5": p5,
-                                 "phase6": p6, "phase7": p7, "phase8": p8, "kernels": k}))
+                                 "phase6": p6, "phase7": p7, "phase8": p8, "phase9": p9,
+                                 "kernels": k}))
     qa = p8["launches"]
     hyb = p7["deploy"]["hybrid_expansion+bm25"]["launches_per_request"]
     big = [c for c in k["k1"] if c["N"] == 250_000 and c["dtype"] == "bfloat16"][0]
+    # phase 9b: launches a pipeline question over its three presets, and
+    # each kernel's first call on that path against plain
+    p9q = p9["pipeline"]["launches_per_question"]
+
+    def p9err(kernel):
+        return max([v for key, v in p9["pipeline"]["kernel_errs"].items()
+                    if key.endswith(" " + kernel)] or [0.0])
+
     kernels_line = {"kernels": [
         {"name": "dense_topk", "route": "cuda",
          "source": "rag_challenge_2_tpu_torch/csrc/dense_topk.cu",
@@ -3090,7 +3744,8 @@ def main(argv=None):
          "launches_per_hybrid_request": hyb["dense_topk"],
          # phase 8: one served QA ask (basic + BM25, 3 routed reports)
          "launches_per_qa_ask": qa["basic"]["dense_topk"],
-         "max_abs_err": max(k["k1_err"], p7["hops"]["err"]),
+         "launches_per_pipeline_question": p9q["dense_topk"],
+         "max_abs_err": max(k["k1_err"], p7["hops"]["err"], p9err("dense_topk")),
          "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
          "bound_by": big["bound_by"], "library_ms": big["library_ms"]},
         {"name": "span_gather", "route": "cuda",
@@ -3100,6 +3755,7 @@ def main(argv=None):
          "launches": p3["launches"]["span_gather"]
          + p5["engine"]["win_start"]["launches"]["span_gather"],
          "launches_per_qa_ask": qa["basic"]["span_gather"],
+         "launches_per_pipeline_question": p9q["span_gather"],
          "max_abs_err": 0.0,
          # the deployment's BM25 calls (phase 3): G = 8 x 64, W = max_postings
          "shape": f"G={p3['k2']['G']} W={p3['k2']['W']} arrays={p3['k2']['arrays']}",
@@ -3110,7 +3766,8 @@ def main(argv=None):
          "source": "rag_challenge_2_tpu_torch/csrc/probe_scores.cu",
          "replaces": "rag_challenge_2_tpu/ops/pallas_ivf.py:102",
          "launches": p5["engine"]["win_start"]["launches"]["probe_scores"],
-         "max_abs_err": p5["kernels"]["k4_err"],
+         "launches_per_pipeline_question": p9q["probe_scores"],
+         "max_abs_err": max(p5["kernels"]["k4_err"], p9err("probe_scores")),
          "ms": p5["kernels"]["float32"]["ms"],
          "plain_ms": p5["kernels"]["float32"]["plain_ms"],
          "bound_ms": p5["kernels"]["float32"]["bound_ms"],
@@ -3122,7 +3779,9 @@ def main(argv=None):
          # the 10M scans (6b) and the engine's int8 arm at 10M (6c)
          "launches": p6["scans"]["launches"]["stream_topk"]
          + p6["engine"]["hybrid_10m_rtNone"]["launches"]["stream_topk"],
-         "max_abs_err": p6["k3_1m"]["err"],
+         # phase 9b's int8 preset
+         "launches_per_pipeline_question": p9q["stream_topk"],
+         "max_abs_err": max(p6["k3_1m"]["err"], p9err("stream_topk")),
          "ms": p6["k3_10m"]["int8"]["ms"], "plain_ms": p6["k3_10m"]["int8"]["plain_ms"],
          "bound_ms": p6["k3_10m"]["int8"]["bound_ms"],
          "bound_by": p6["k3_10m"]["int8"]["bound_by"],

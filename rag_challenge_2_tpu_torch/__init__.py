@@ -24,10 +24,16 @@ Layout (bottom-up):
     qa/         QuestionsProcessor: retrieval → rerank → page selection →
                 schema-typed answer, batch runs and submission files
     serving/    the micro-batcher over search_many, the web QA frontend
+    ingestion/  PDF / text parsing (the built-in PDF reader among them),
+                page merging, token-budgeted chunking, LLM table
+                serialization, and the ingestor: chunks → embeddings →
+                corpus index, whole or incremental
+    pipeline/   the data-set layout, the stage runner and its presets
     eval/       the chunk-to-chunk similarity matrix, the LLM judge, the
-                submission scorer
+                submission scorer, the end-to-end eval over a PDF fixture
     models/     the transformer encoder (inference)
-    cli.py      ``query`` (one-shot retrieval) and ``serve`` (the web app)
+    cli.py      the pipeline's stages, ``query`` (one-shot retrieval) and
+                ``serve`` (the web app)
     csrc/       the hand-written CUDA kernels for sm_90a
 """
 

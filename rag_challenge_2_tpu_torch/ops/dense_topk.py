@@ -28,9 +28,9 @@ import torch
 from .. import device  # noqa: F401  (full-f32 matmuls for the plain version)
 from ..utils import kernels
 from .float_scan import FloatPlan, float_plan, sm_count
-from .topk import NEG_INF, stable_topk
+from .topk import KERNEL_MAX_K, NEG_INF, stable_topk
 
-MAX_K = 64
+MAX_K = KERNEL_MAX_K
 MAX_QUERIES = 64
 
 

@@ -47,9 +47,9 @@ from .. import device  # noqa: F401  (full-f32 matmuls for the plain version)
 from ..utils import kernels
 from .float_scan import FLOAT_CONSTANTS, FloatPlan, float_plan, sm_count
 from .quant import I8_EXACT_F32_DIM, i8_dot, int8_epilogue
-from .topk import BLOCK_ROWS, NEG_INF, stable_topk
+from .topk import BLOCK_ROWS, KERNEL_MAX_K, NEG_INF, stable_topk
 
-MAX_K = 64
+MAX_K = KERNEL_MAX_K
 MAX_QUERIES = 128
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -126,9 +126,13 @@ def block_scores(
 ) -> torch.Tensor:
     """``[B, n]`` f32 scores of the queries against store rows ``e`` in the
     kernel's forms (see the module docstring), each product and sum
-    rounded in the order of the JAX package's ``blocked_topk``."""
+    rounded in the order of the JAX package's ``blocked_topk``; int8 rows
+    with ``row_scale`` but no ``q_scale`` score f32 queries against the
+    dequantized rows (a traversal hop, ``ops/topk.wide_topk``)."""
     if e.dtype != torch.int8:
         return q.float() @ e.float().T
+    if q_scale is None:             # f32 queries against dequantized rows
+        return (q.float() @ e.float().T) * row_scale[None, :]
     s = int8_epilogue(i8_dot(q, e), row_scale[None, :], q_scale, q_scale_lo)
     if assign is not None:
         s = s + qc[:, assign.long()]

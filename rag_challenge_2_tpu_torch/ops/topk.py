@@ -9,7 +9,12 @@ with ties to the lowest row.  On the card two kernels serve it:
 * K3 (:mod:`.stream_topk`) for everything else: int8 stores, larger
   batches, and :func:`blocked_topk`, the bounded-memory exact scan.
 
-A CPU tensor goes to the kernels' plain PyTorch versions.
+Both keep at most :data:`KERNEL_MAX_K` = 64 candidates a query.  A wider
+top-k on the card takes :func:`wide_topk`, chosen by k before any launch
+(:func:`topk_route`): a row-blocked IEEE-f32 ``torch.matmul`` with a
+carried stable top-k, the counterpart of the JAX package's route for
+this op (``jnp.dot(precision=HIGHEST)`` + ``lax.top_k``, outside any
+Pallas kernel).  A CPU tensor goes to the kernels' plain PyTorch versions.
 
 ``lax.approx_max_k`` (the TPU's fused PartialReduce, the JAX package's
 ``approx_rt`` / ``recall_target`` / engine ``scan_rt``) has no Hopper
@@ -32,6 +37,45 @@ BLOCK_ROWS = 1 << 20
 LARGE_TOPK_MIN_COLS = 1 << 19
 
 _IMPLS = ("auto", "xla", "pallas", "blocked")
+
+# The largest k kernels K1 and K3 keep per query.
+KERNEL_MAX_K = 64
+_STORE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def topk_route(k: int, dtype: torch.dtype, device_type: str) -> str:
+    """The path an exact top-k of width ``k`` over a store of ``dtype`` on
+    ``device_type`` takes: ``"plain"`` for a CPU tensor (the kernels'
+    plain versions), and on the card ``"kernel"`` (K1 or K3) for ``k <=``
+    :data:`KERNEL_MAX_K`, ``"wide"`` (:func:`wide_topk`) above."""
+    if dtype not in _STORE_DTYPES:
+        raise ValueError(f"store dtype must be one of {_STORE_DTYPES}, got {dtype}")
+    if device_type != "cuda":
+        return "plain"
+    return "wide" if k > KERNEL_MAX_K else "kernel"
+
+
+def wide_topk(
+    q: torch.Tensor, emb: torch.Tensor, k: int,
+    mask: Optional[torch.Tensor] = None, *, block: int = BLOCK_ROWS, **scores,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wide-k route: ``block`` rows at a time, one IEEE-f32
+    ``torch.matmul`` (TF32 is off, ``device.py``) and a stable merge with
+    the carried top-k, ties to the lowest row
+    (``stream_topk.stream_topk_plain``).  ``scores`` are that function's
+    score forms: the int8 ones of ``ops/quant`` (``q_scale``,
+    ``row_scale``, ...), or f32 queries against dequantized int8 rows
+    (``row_scale`` alone, a traversal hop).  Slots past the eligible rows
+    hold row -1 and NEG_INF.  Calls on a CUDA tensor are counted in
+    ``wide_topk.launches``."""
+    from .stream_topk import stream_topk_plain
+
+    if q.is_cuda:
+        wide_topk.launches += 1
+    return stream_topk_plain(q, emb, k, mask, block=block, **scores)
+
+
+wide_topk.launches = 0
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,7 +109,8 @@ def blocked_topk(
     query_2pass: bool = False,
     approx_rt: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bounded-memory exact scan, through kernel K3.
+    """The bounded-memory exact scan, through kernel K3 (through
+    :func:`wide_topk` on the card when ``k`` > :data:`KERNEL_MAX_K`).
 
     Args:
         q: ``[B, D]`` f32/bf16 queries (kept in f32 against every store).
@@ -95,6 +140,8 @@ def blocked_topk(
         raise ValueError("residual assign/centroids require an int8 store")
     if int8 and row_scale is None:
         raise ValueError("int8 emb requires row_scale (see ops/quant.py)")
+    scan = (wide_topk if topk_route(k, emb.dtype, q.device.type) == "wide"
+            else stream_topk)
     vals, rows = [], []
     # K3 takes up to 128 queries; quantization and scores are per query,
     # so slices of the batch concatenate to the whole batch's result
@@ -114,7 +161,7 @@ def blocked_topk(
                 kw.update(assign=assign, qc=(qf @ centroids.float().T).contiguous())
         else:
             q_in = qf
-        v, r = stream_topk(q_in.contiguous(), emb, k, m, block=block, **kw)
+        v, r = scan(q_in.contiguous(), emb, k, m, block=block, **kw)
         vals.append(v)
         rows.append(r)
     return torch.cat(vals), torch.cat(rows)
@@ -158,8 +205,9 @@ def dense_topk(
         mask: optional bool ``[N]`` (``[B, N]`` on the CPU only) — False
             rows score NEG_INF.
         impl: ``"auto"``, ``"xla"`` and ``"pallas"`` run the exact scan
-            (K1 where it takes the call, else K3); ``"blocked"`` is
-            :func:`blocked_topk` and its -1 overflow rows.
+            (K1 where it takes the call, else K3, on the card
+            :func:`wide_topk` for k above :data:`KERNEL_MAX_K`);
+            ``"blocked"`` is :func:`blocked_topk` and its -1 overflow rows.
         row_scale: ``[N]`` f32 scales, required iff ``emb`` is int8.
 
     Returns ``(values [B, k_eff] f32, rows [B, k_eff] i32)`` descending;
@@ -175,9 +223,10 @@ def dense_topk(
         return int8_topk(q, emb, row_scale, k, mask)
     if impl == "blocked":
         return blocked_topk(q, emb, k, mask=mask)
-    from .dense_topk import MAX_K, MAX_QUERIES, dense_topk_fused
+    from .dense_topk import MAX_QUERIES, dense_topk_fused
 
-    if q.device.type == "cpu" or (q.shape[0] <= MAX_QUERIES and k <= MAX_K):
+    route = topk_route(k, emb.dtype, q.device.type)
+    if route == "plain" or (route == "kernel" and q.shape[0] <= MAX_QUERIES):
         return dense_topk_fused(q, emb, k, mask)
     return fill_overflow(*blocked_topk(q, emb, k, mask=mask), mask)
 

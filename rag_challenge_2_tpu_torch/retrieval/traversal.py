@@ -9,12 +9,13 @@ per walker:
   rows, masked, top-(neighbor_k + 1)".  On an f32 / bf16 store with a mask
   shared by the walkers that is ``ops.topk.dense_topk``: kernel K1 up to 64
   walkers, kernel K3 above (split at 128), so no ``[A, W]`` score matrix
-  is written.  The JAX package computes the same hop as an einsum plus
-  ``lax.top_k``;
+  is written; with ``neighbor_k + 1`` above the kernels' 64 candidates it
+  routes to ``ops.topk.wide_topk``.  The JAX package computes the same hop
+  as an einsum plus ``lax.top_k``;
 * an int8 store scores the f32 walker vector against the dequantized rows
   (K3's int8 forms quantize the query too, which is another number), and a
-  per-walker ``[A, N]`` mask is one no kernel takes: both hops are plain
-  PyTorch, in row blocks with a carried stable top-k
+  per-walker ``[A, N]`` mask is one no kernel takes: both hops are
+  ``ops.topk.wide_topk``, in row blocks with a carried stable top-k
   (:func:`_plain_hop`), so neither the scores nor an f32 copy of a large
   document is ever whole in memory;
 * the visited set is the path itself, checked by broadcast comparison;
@@ -38,8 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import device  # noqa: F401  (full-f32 matmuls for the plain hops)
-from ..ops.dense_topk import MAX_K as KERNEL_MAX_K  # K1's and K3's largest k
-from ..ops.topk import NEG_INF, dense_topk, stable_topk
+from ..ops.topk import NEG_INF, dense_topk, fill_overflow, stable_topk, wide_topk
 
 
 class TraversalResult(NamedTuple):
@@ -65,14 +65,6 @@ HOP_APPROX_MIN_COLS = 1 << 16
 HOP_BLOCK_ROWS = 1 << 16
 
 
-def _cand_topk(scores: torch.Tensor, k: int, approx_rt: Optional[float]):
-    """Top-k hop candidates over the last axis of materialized scores, ties
-    to the lowest column; ``approx_rt`` is accepted and the result exact."""
-    del approx_rt
-    vals, ids = stable_topk(scores, k)
-    return vals, ids.to(torch.int32)
-
-
 def _gather_vecs(emb, row_scale, idx):
     """Dequantizing row gather: f32 vectors whatever the store dtype."""
     idx = idx.long()
@@ -82,30 +74,13 @@ def _gather_vecs(emb, row_scale, idx):
     return v
 
 
-def _plain_hop(lhs, emb, row_scale, mask, k, approx_rt=None):
-    """Top-k of ``lhs · rows`` in plain PyTorch, in blocks of
-    :data:`HOP_BLOCK_ROWS` rows with a carried stable top-k (a carried
-    candidate precedes the block's in the merge, so ties stay with the
-    lowest row).  ``mask`` is None, ``[N]`` or ``[A, N]``."""
-    A, N = lhs.shape[0], emb.shape[0]
-    vals = ids = None
-    for s0 in range(0, N, HOP_BLOCK_ROWS):
-        s1 = min(s0 + HOP_BLOCK_ROWS, N)
-        s = lhs @ emb[s0:s1].float().T
-        if row_scale is not None:
-            s = s * row_scale[None, s0:s1]
-        if mask is not None:
-            s = torch.where(mask[..., s0:s1] if mask.dim() == 2
-                            else mask[None, s0:s1], s,
-                            torch.full_like(s, NEG_INF))
-        v, i = _cand_topk(s, min(k, s1 - s0), approx_rt)
-        i = i + s0
-        if vals is not None:
-            v, j = _cand_topk(torch.cat([vals, v], 1),
-                              min(k, vals.shape[1] + v.shape[1]), approx_rt)
-            i = torch.gather(torch.cat([ids, i], 1), 1, j.long())
-        vals, ids = v, i
-    return vals, ids
+def _plain_hop(lhs, emb, row_scale, mask, k):
+    """Top-k of ``lhs · rows`` by ``ops.topk.wide_topk`` in blocks of
+    :data:`HOP_BLOCK_ROWS` rows, with the one-shot top-k's overflow slots
+    (masked rows at NEG_INF, lowest first).  ``mask`` is None, ``[N]`` or
+    ``[A, N]``; an int8 store (``row_scale``) is scored dequantized."""
+    return fill_overflow(*wide_topk(lhs, emb, k, mask, row_scale=row_scale,
+                                    block=HOP_BLOCK_ROWS), mask)
 
 
 def _hop_candidates(cur_vec, emb, row_scale, mask, path, neighbor_k,
@@ -122,13 +97,9 @@ def _hop_candidates(cur_vec, emb, row_scale, mask, path, neighbor_k,
     k = neighbor_k + 1
     shared = mask is None or mask.dim() == 1
     if emb.dtype != torch.int8 and shared:
-        if emb.is_cuda and k > KERNEL_MAX_K:
-            raise ValueError(
-                f"neighbor_k + 1 = {k} exceeds the {KERNEL_MAX_K} candidates "
-                "kernels K1 and K3 keep per walker; lower neighbor_k")
         vals, ids = dense_topk(cur_vec, emb, k, mask=mask)
     else:
-        vals, ids = _plain_hop(cur_vec, emb, row_scale, mask, k, approx_rt)
+        vals, ids = _plain_hop(cur_vec, emb, row_scale, mask, k)
     if vals.shape[1] < k:
         pad = k - vals.shape[1]
         vals = torch.cat([vals, vals.new_full((vals.shape[0], pad), NEG_INF)], 1)

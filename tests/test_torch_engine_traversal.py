@@ -54,8 +54,8 @@ def drop_compiled_programs():
     jax.clear_caches()
 
 
-def make_engines(tmp_path, store="float32"):
-    reports, embs = make_reports(np.random.default_rng(0))
+def make_engines(tmp_path, store="float32", **corpus):
+    reports, embs = make_reports(np.random.default_rng(0), **corpus)
     idx, meta = jax_build(reports, embs, vocab_bits=16,
                           **({"dtype": jnp.bfloat16} if store == "bfloat16" else {}))
     if store == "int8":
@@ -141,6 +141,30 @@ def test_traversal_search_matches_jax(tmp_path, rng, monkeypatch, method, tier, 
         assert_same_details(td, jd, 1e-5, f"{method} {tier} {option}")
         assert rounded(te.materialize_details(td, tc)) == \
             rounded(je.materialize_details(jd, jc))
+
+
+@pytest.mark.parametrize("route", ["plain", "wide"])
+@pytest.mark.parametrize("method", ["ssg", "hybrid_expansion"])
+def test_traversal_neighbor_k_100_matches_jax(tmp_path, rng, monkeypatch, method, route):
+    """neighbor_k = 100: 101 candidates a hop, above the 64 kernels K1 and
+    K3 keep, over documents of 160 chunks.  "wide" sends the CPU hops down
+    the route the card takes for them (``ops.topk.wide_topk``)."""
+    from rag_challenge_2_tpu_torch.ops import topk as topk_mod
+
+    if route == "wide":
+        real = topk_mod.topk_route
+        monkeypatch.setattr(topk_mod, "topk_route",
+                            lambda k, dtype, device: real(k, dtype, "cuda"))
+    je, te, embs = make_engines(tmp_path, pages_per_doc=20, chunks_per_page=8)
+    kw = dict(method=method, top_k=5, top_n=70, max_hops=3, neighbor_k=100)
+    q = np.concatenate([_q_for(embs, 0, 5, rng), _q_for(embs, 1, 7, rng)])
+    (jc, jcands, jd), (tc, tcands, td) = both_search(je, te, q, kw)
+    tres, jres = te.materialize(tcands, tc), je.materialize(jcands, jc)
+    assert tres
+    assert_same_results(tres, jres, False)
+    assert_same_details(td, jd, 1e-5, f"{method} neighbor_k 100 {route}")
+    assert rounded(te.materialize_details(td, tc)) == \
+        rounded(je.materialize_details(jd, jc))
 
 
 @pytest.mark.parametrize("tier", TIERS)

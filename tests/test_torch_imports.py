@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it never reaches jax, flax or the JAX
-package (a search and a question answered through the QA layer with those
-blocked), and its host copies (tokenizer, SearchConfig) equal the
-originals."""
+package, nor pandas, click or tiktoken, which the card's machine may lack
+(a search, a question answered through the QA layer and a report taken
+through the pipeline's stages with those blocked), and its host copies
+(tokenizer, SearchConfig) equal the originals."""
 
 import dataclasses
 import os
@@ -13,11 +14,13 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# every module of the port, plus a tiny CPU search and one answered
-# question through the public API
+# every module of the port, plus a tiny CPU search, one answered question
+# and one report through the pipeline's stages, through the public API
 _NO_JAX_PROGRAM = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "rag_challenge_2_tpu"):
+BLOCKED = ("jax", "jaxlib", "flax", "rag_challenge_2_tpu", "pandas", "click",
+           "tiktoken")
+for name in BLOCKED:
     sys.modules[name] = None          # any import of these now fails
 import pkgutil, importlib
 import numpy as np
@@ -62,9 +65,26 @@ proc = QuestionsProcessor(eng, lambda texts: np.repeat(embs[1][2:3], len(texts),
 ans = proc.process_question("金盘科技2024年营业收入是多少", "number")
 assert ans["final_answer"] == 68.9 and ans["references"], ans
 assert json.loads(json.dumps(ans))["final_answer"] == 68.9
+# the pipeline's stages on one text report (subset.csv read without pandas)
+import tempfile
+from pathlib import Path
+from rag_challenge_2_tpu_torch.pipeline import Pipeline, configs
+root = Path(tempfile.mkdtemp())
+(root / "pdf_reports").mkdir()
+(root / "pdf_reports" / "J2024_jp.txt").write_text(
+    "金盘科技2024年年报\n\n营业收入为68.9亿元\f第二页：研发费用3.2亿元", encoding="utf-8")
+(root / "subset.csv").write_text("sha1,company_name,year\nJ2024_jp,金盘科技,2024\n",
+                                 encoding="utf-8")
+pipe = Pipeline(root, configs["offline"], device="cpu",
+                embedder=lambda texts: np.repeat(embs[0][:1], len(texts), 0))
+pipe.parse_pdf_reports()
+pipe.process_parsed_reports()
+from rag_challenge_2_tpu_torch.index import load_index
+pidx, pmeta = load_index(pipe.paths.index_path, device="cpu")
+assert pmeta.docs[0].company == "金盘科技" and pmeta.docs[0].year == 2024
+assert pidx.n_chunks >= 2, pidx.n_chunks
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "jaxlib", "flax", "rag_challenge_2_tpu")
-       and sys.modules[m] is not None]
+       if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
 print("OK")
 """

@@ -865,12 +865,52 @@ def test_traversal_on_the_card_equals_the_cpu(dev):
 
 
 def test_neighbor_k_above_the_kernels_k_raises_on_the_card(dev):
+    """neighbor_k + 1 = 65 used to raise on the card; the hop now routes by
+    k: 64 candidates through K1, 65 through ``wide_topk`` (no kernel
+    launch), and both answer as the CPU does."""
+    from rag_challenge_2_tpu_torch.ops.topk import wide_topk
     from rag_challenge_2_tpu_torch.retrieval.traversal import traverse
 
-    emb = torch.randn(500, 32, device=dev)
-    with pytest.raises(ValueError, match="neighbor_k"):
-        traverse(emb, torch.tensor([3], device=dev), emb[3:4].clone(), None,
-                 max_hops=2, neighbor_k=64, mode="ssg")
-    res = traverse(emb, torch.tensor([3], device=dev), emb[3:4].clone(), None,
-                   max_hops=2, neighbor_k=63, mode="ssg")
-    assert res.path[0, 1] >= 0
+    emb = torch.nn.functional.normalize(torch.randn(500, 32, device=dev))
+    for nk, wide in ((63, 0), (64, 2)):
+        k1, w = dense_topk_fused.launches, wide_topk.launches
+        res = traverse(emb, torch.tensor([3], device=dev), emb[3:4].clone(), None,
+                       max_hops=2, neighbor_k=nk, mode="ssg")
+        ref = traverse(emb.cpu(), torch.tensor([3]), emb[3:4].cpu(), None,
+                       max_hops=2, neighbor_k=nk, mode="ssg")
+        assert (dense_topk_fused.launches - k1, wide_topk.launches - w) == (
+            (2, 0) if not wide else (0, wide))
+        assert res.path[0, 1] >= 0 and torch.equal(res.path.cpu(), ref.path)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("B,k", [(8, 100), (70, 65), (130, 200)])
+def test_wide_k_on_the_card_equals_the_cpu(dev, dtype, B, k):
+    """k above 64: ``dense_topk`` (and through it ``int8_topk`` and
+    ``blocked_topk``) takes ``wide_topk`` on the card, one call per 128
+    queries, no K1 / K3 launch; values within 1e-4 of the CPU's, rows
+    equal where untied, overflow slots as the CPU's.  int8 is not bitwise
+    here: on the card ``amax / 127`` in ``quantize_rows`` runs as a
+    multiply by 1/127, one ulp off the CPU's division on some queries."""
+    from rag_challenge_2_tpu_torch.ops.quant import quantize_rows
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+    from rag_challenge_2_tpu_torch.ops.topk import dense_topk, wide_topk
+
+    g = torch.Generator(device="cpu").manual_seed(B + k)
+    q = torch.randn(B, 96, generator=g)
+    emb = torch.randn(20_000, 96, generator=g)
+    mask = torch.rand(20_000, generator=g) > 0.995          # ~100 eligible rows
+    scale = None
+    if dtype == torch.int8:
+        emb, scale = quantize_rows(emb)
+    else:
+        emb = emb.to(dtype)
+    counts = (dense_topk_fused.launches, stream_topk.launches, wide_topk.launches)
+    kv, ki = dense_topk(q.to(dev), emb.to(dev), k, mask.to(dev),
+                        row_scale=None if scale is None else scale.to(dev))
+    torch.cuda.synchronize()
+    assert (dense_topk_fused.launches, stream_topk.launches,
+            wide_topk.launches) == (counts[0], counts[1], counts[2] + -(-B // 128))
+    pv, pi = dense_topk(q, emb, k, mask, row_scale=scale)
+    assert kv.shape == pv.shape == (B, k)
+    _untied_rows_equal(kv.cpu(), ki.cpu(), pv, pi)

@@ -214,3 +214,92 @@ def test_kernel_libraries_rebuild_when_a_shared_header_changes(tmp_path, monkeyp
         RuntimeError("nvcc wanted")))
     with pytest.raises(RuntimeError, match="nvcc wanted"):
         kernels._build("a")
+
+
+# ---------------------------------------------------------------- wide k
+# K1 and K3 keep at most 64 candidates a query; on the card a wider top-k
+# takes ops.topk.wide_topk, chosen by k before any launch.
+
+@pytest.mark.parametrize("k,dtype,device,route", [
+    (1, torch.float32, "cuda", "kernel"), (64, torch.float32, "cuda", "kernel"),
+    (65, torch.float32, "cuda", "wide"), (100, torch.bfloat16, "cuda", "wide"),
+    (64, torch.int8, "cuda", "kernel"), (101, torch.int8, "cuda", "wide"),
+    (100, torch.float32, "cpu", "plain"), (5, torch.int8, "cpu", "plain"),
+])
+def test_topk_route_is_chosen_by_k(k, dtype, device, route):
+    from rag_challenge_2_tpu_torch.ops.topk import KERNEL_MAX_K, topk_route
+
+    assert KERNEL_MAX_K == 64
+    assert topk_route(k, dtype, device) == route
+
+
+def test_topk_route_rejects_another_store_dtype():
+    from rag_challenge_2_tpu_torch.ops.topk import topk_route
+
+    with pytest.raises(ValueError, match="store dtype"):
+        topk_route(8, torch.float16, "cuda")
+
+
+@pytest.fixture(params=["plain", "wide"])
+def route(request, monkeypatch):
+    """"wide" sends CPU tensors down the route the card takes for k > 64
+    (``wide_topk``), so its arithmetic is held here too."""
+    from rag_challenge_2_tpu_torch.ops import topk as topk_mod
+
+    if request.param == "wide":
+        real = topk_mod.topk_route
+        monkeypatch.setattr(topk_mod, "topk_route",
+                            lambda k, dtype, device: real(k, dtype, "cuda"))
+    return request.param
+
+
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+def test_dense_topk_k100_matches_jax(rng, route, store):
+    """k = 100 over 700 rows with a mask that leaves 80 eligible: values
+    within 1e-5, rows equal where untied, the overflow slots the masked
+    rows at NEG_INF, lowest first, as ``lax.top_k`` returns them."""
+    from rag_challenge_2_tpu_torch.ops.topk import wide_topk
+
+    q = rng.normal(size=(5, 48)).astype(np.float32)
+    emb = rng.normal(size=(700, 48)).astype(np.float32)
+    mask = np.zeros(700, bool)
+    mask[rng.permutation(700)[:80]] = True
+    jdt = jnp.bfloat16 if store == "bfloat16" else jnp.float32
+    tdt = getattr(torch, store)
+    launches = wide_topk.launches
+    tv, ti = dense_topk(torch.from_numpy(q), torch.from_numpy(emb).to(tdt), 100,
+                        torch.from_numpy(mask))
+    xv, xi = jax_dense_topk(jnp.asarray(q), jnp.asarray(emb).astype(jdt), 100,
+                            mask=jnp.asarray(mask))
+    assert_same_topk(tv, ti, xv, xi)
+    assert (tv[:, 80:] == NEG_INF).all()
+    np.testing.assert_array_equal(ti[:, 80:].numpy(), np.asarray(xi)[:, 80:])
+    assert wide_topk.launches == launches          # CPU calls are not counted
+
+
+def test_int8_and_blocked_topk_k100_match_jax(rng, route):
+    """The int8 scan (query quantized as ops/quant does) and blocked_topk
+    at k = 100: int8 values within 1e-5 of the JAX package's, blocked's
+    overflow slots row -1."""
+    from rag_challenge_2_tpu.ops.quant import int8_topk as jax_int8_topk
+    from rag_challenge_2_tpu.ops.quant import quantize_rows as jax_quantize_rows
+    from rag_challenge_2_tpu_torch.ops.quant import int8_topk, quantize_rows
+    from rag_challenge_2_tpu_torch.ops.topk import blocked_topk
+
+    q = rng.normal(size=(3, 64)).astype(np.float32)
+    emb = rng.normal(size=(500, 64)).astype(np.float32)
+    mask = rng.random(500) > 0.5
+    e8, sc = quantize_rows(torch.from_numpy(emb))
+    je8, jsc = jax_quantize_rows(jnp.asarray(emb))
+    np.testing.assert_array_equal(e8.numpy(), np.asarray(je8))
+    tv, ti = int8_topk(torch.from_numpy(q), e8, sc, 100, torch.from_numpy(mask))
+    xv, xi = jax_int8_topk(jnp.asarray(q), je8, jsc, 100, jnp.asarray(mask))
+    assert_same_topk(tv, ti, xv, xi)
+    bv, bi = blocked_topk(torch.from_numpy(q), torch.from_numpy(emb), 300,
+                          mask=torch.from_numpy(mask), block=128)
+    n_ok = int(mask.sum())
+    assert (bi[:, n_ok:] == -1).all() and (bv[:, n_ok:] == NEG_INF).all()
+    xv, xi = jax_dense_topk(jnp.asarray(q), jnp.asarray(emb), 300,
+                            mask=jnp.asarray(mask))
+    assert_same_topk(bv[:, :n_ok], bi[:, :n_ok], np.asarray(xv)[:, :n_ok],
+                     np.asarray(xi)[:, :n_ok])

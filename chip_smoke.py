@@ -113,7 +113,32 @@ without printing a result:
    questions on the card against the CPU; (e) wide k: ``neighbor_k = 100``
    traversal asks and ``query --top-n 100`` against the CPU, through
    ``ops.topk.wide_topk``.
-10. the last line: ``{"ok": true, "device": {...}}``.
+10. encoder training on the card (right after phase 9, on 9b's corpus):
+    (a) one full-width train step (the default ``EncoderConfig``, max_len
+    64, batch 64, a batch sampled from the corpus) on the card and on the
+    CPU from the same weights, in f32 and bf16 activations: loss, accuracy,
+    per-tensor gradient cosine, the parameters after the step (Adam's
+    first update is ~ lr * sign(g): elements under 1e-3 of their tensor's
+    largest gradient are counted, not compared); the step's CUDA-event time
+    beside its bound (its valid-token operations over the bf16 / f32 peak,
+    or its weight and AdamW-state bytes), its device kernels and busy
+    share; (b) ``Pipeline.create_vector_dbs`` with no saved params: the
+    auto-pretrain (300 steps, default ``PretrainConfig``, host teacher),
+    loss falling, steps/s, the loop's split between the host's sampler and
+    the card's step and its busy share; the ``offline`` + BM25 preset
+    answering 9b's 16 questions over the trained index (K1 + K2) against a
+    CPU pipeline on the same embeddings; the saved npz through the CPU
+    encoder (cos >= 0.99999); ``eval_hybrid_e2e`` with the trained encoder;
+    (c) 20 steps with the device teacher (``host_teacher=False``): K2
+    launches per step, its scores against ``HostBM25Scorer`` (2e-5); (d)
+    ``run_quality_eval`` (the default recipe at 5,000 steps, the ablation
+    arms at 200, supervised 2,000), every arm beside
+    docs/ENCODER_QUALITY.json, gates: BM25 equal to the CPU's, the default
+    recipe's hit@10 >= 0.55 and >= 0.2 above random init; K3 / K2 launches;
+    (e) ``train-encoder`` → ``process-reports`` (params loaded) → ``query``
+    and ``eval-encoder`` through the CLI in subprocesses.  Each kernel's
+    first call on these paths is held against its plain version.
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Weights are random from ``--seed`` unless a
 ``save_params`` npz is given.
@@ -3646,7 +3671,7 @@ def phase9e_wide(dev, ctx):
 
 def phase9_pipeline(dev, model, seed, work, n_pages=PIPE_PAGES):
     """Phase 9: the ingestion pipeline, the CLI, the end-to-end eval and
-    wide k, on the card (9a-9e)."""
+    wide k, on the card (9a-9e); returns 9b's corpus for phase 10."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -3658,6 +3683,527 @@ def phase9_pipeline(dev, model, seed, work, n_pages=PIPE_PAGES):
     out["wide"] = phase9e_wide(dev, ctx)
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 9 took {out['seconds']:.1f} s")
+    return out, ctx
+
+
+# --------------------------------------------------------------- phase 10
+
+BF16_OPS_S = 989e12          # the H100 SXM's dense bf16 tensor-core peak
+# the recorded quality eval (docs/ENCODER_QUALITY.json, seed 0 unless noted):
+# quality numbers carry over between devices, times do not
+QUALITY_RECORD = {"bm25": (0.905, 0.3801), "encoder_random_init": (0.305, 0.1396),
+                  "encoder_ict": (0.0, 0.0024), "encoder_unsupervised": (0.18, 0.1051),
+                  "encoder_bm25_distill": (0.47, 0.2068),
+                  "encoder_alias_distill": (0.73, 0.363),
+                  "hybrid_alias_distill": (0.905, 0.4404),
+                  "encoder_bm25_listwise": (0.21, 0.1067),
+                  "encoder_ict_supervised": (1.0, 1.0)}
+SIGN_RULE = 1e-3             # Adam's first update ~ lr * sign(g): |g| under
+                             # this share of a tensor's max is counted only
+
+
+def train_step_ops(q, p, cfg):
+    """Forward + backward operations of one contrastive step on these token
+    batches, counting valid tokens only (padding changes no output): per
+    token and block 8 d^2 (q, k, v, out) + 4 d d_ff (MLP), per sequence
+    and block 4 n^2 d (scores and the weighted sum over n valid tokens),
+    per sequence 2 d out_dim (the projection); the logits 2 B^2 out_dim;
+    backward twice the forward."""
+    d, ff = cfg.d_model, cfg.d_ff
+    fwd = 0
+    for tokens in (q, p):
+        n = (tokens >= 0).sum(dim=1).double()
+        fwd += cfg.n_layers * (float(n.sum()) * (8 * d * d + 4 * d * ff)
+                               + float((n * n).sum()) * 4 * d)
+        fwd += tokens.shape[0] * 2 * d * cfg.out_dim
+    fwd += 2 * q.shape[0] * p.shape[0] * cfg.out_dim
+    return 3 * fwd
+
+
+def step_bound(q, p, cfg, n_params, peak):
+    """The step's least time: its operations over the peak of its type, or
+    its bytes (the tokens read, the f32 weights and AdamW's two moments read
+    once and written once) over the HBM rate, the larger."""
+    nbytes = 6 * 4 * n_params + 4 * (q.numel() + p.numel())
+    return bound(nbytes, train_step_ops(q, p, cfg), peak)
+
+
+def compare_steps(name, card, cpu, f32):
+    """One train step's results, card against CPU: loss, accuracy, the
+    per-tensor gradient cosine, and the parameters after the step where
+    the gradient's sign is sure (|g| >= SIGN_RULE x the tensor's max, or 0
+    in both); the rest, and attention's key bias (its gradient is 0 in
+    exact arithmetic), are counted.  f32: loss within 1e-4 relative, every
+    cosine >= 0.9999, every compared parameter within 1e-6; bf16: loss
+    within 2e-2, cosines >= 0.99, at most 0.1% of the compared parameters
+    further than 1e-6 (a bf16 gradient's sign can flip at 1e-3 of its
+    tensor's max)."""
+    import torch
+
+    (gm, gmod), (cm, cmod) = card, cpu
+    dl = abs(gm["loss"].item() - cm["loss"].item()) / abs(cm["loss"].item())
+    check(dl <= (1e-4 if f32 else 2e-2), f"{name}: loss {gm['loss'].item()} vs "
+          f"{cm['loss'].item()}")
+    cos_min, compared, counted, off = 1.0, 0, 0, 0
+    for (n, gp), (_, cp) in zip(gmod.named_parameters(), cmod.named_parameters()):
+        g, c = gp.grad.detach().cpu().double(), cp.grad.detach().double()
+        top = c.abs().max()
+        if n.endswith(".key.bias"):
+            # 0 in exact arithmetic (the softmax ignores a shift shared by
+            # all keys): rounding on both sides, so Adam moves it by
+            # lr * the sign of noise; counted, never compared
+            counted += c.numel()
+            continue
+        if top > 0:
+            cos_min = min(cos_min, float((g.flatten() @ c.flatten())
+                                         / (g.norm() * c.norm())))
+        sure = (c.abs() >= SIGN_RULE * top) | ((c == 0) & (g == 0))
+        diff = (gp.detach().cpu() - cp.detach()).abs()[sure]
+        compared += int(sure.sum())
+        counted += int((~sure).sum())
+        off += int((diff > 1e-6).sum())
+    check(cos_min >= (0.9999 if f32 else 0.99), f"{name}: gradient cosine {cos_min}")
+    check(off <= (0 if f32 else 1e-3 * compared),
+          f"{name}: {off} of {compared} parameters differ after the step")
+    return dict(loss=gm["loss"].item(), loss_cpu=cm["loss"].item(), loss_rel=dl,
+                accuracy=gm["accuracy"].item(), accuracy_cpu=cm["accuracy"].item(),
+                grad_cos_min=cos_min, params_compared=compared, params_counted=counted,
+                params_off=off)
+
+
+def top_kernels(fn, n=6):
+    """The ``n`` device kernels with the most device time in one ``fn()``
+    under ``torch.profiler``: ``[(name, ms, count), ...]``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key[:60], (getattr(ev, "self_device_time_total", 0)
+                           or getattr(ev, "self_cuda_time_total", 0)) / 1e3, ev.count)
+            for ev in prof.key_averages()]
+    return sorted([r for r in rows if r[1] > 0], key=lambda r: -r[1])[:n]
+
+
+def phase10a_step(dev, seed, texts):
+    """One full-width train step on the card and on the CPU from the same
+    weights and sampled batch (default EncoderConfig, max_len 64, batch
+    64), in f32 and bf16 activations; the card's step timed by CUDA events
+    beside its bound, its device kernels and busy share."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rag_challenge_2_tpu_torch.models.encoder import Encoder, EncoderConfig, tokenize_batch
+    from rag_challenge_2_tpu_torch.models.pretrain import PairSampler, PretrainConfig
+    from rag_challenge_2_tpu_torch.models.train import (
+        TrainConfig, make_optimizer, make_train_step)
+    from rag_challenge_2_tpu_torch.utils.timing import cuda_ms_train
+
+    log("== phase 10a: one full-width train step, the card against the CPU")
+    t0 = time.perf_counter()
+    pre = PretrainConfig(seed=seed)
+    qs, ps, _ = PairSampler(texts, pre, device=dev).sample(np.random.default_rng(seed))
+    tc = TrainConfig(lr=3e-4)
+    out = {}
+    for dtype, peak in ((torch.float32, F32_OPS_S), (torch.bfloat16, BF16_OPS_S)):
+        cfg = dataclasses.replace(EncoderConfig(), dtype=dtype)
+        q = torch.from_numpy(tokenize_batch(qs, pre.max_len, cfg.vocab_bits))
+        p = torch.from_numpy(tokenize_batch(ps, pre.max_len, cfg.vocab_bits))
+        init = Encoder(cfg)
+        init.init_weights(torch.Generator().manual_seed(seed))
+        runs = {}
+        for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            mod = Encoder(cfg)
+            mod.load_state_dict(init.state_dict())
+            mod.to(where)
+            step = make_train_step(mod, make_optimizer(mod.parameters(), tc), tc)
+            runs[label] = (step(q.to(where), p.to(where)), mod, step)
+        short = "f32" if dtype == torch.float32 else "bf16"
+        res = compare_steps(f"10a {short}", runs["card"][:2], runs["cpu"][:2],
+                            dtype == torch.float32)
+        step, mod = runs["card"][2], runs["card"][1]
+        qd, pd = q.to(dev), p.to(dev)
+        ms = cuda_ms_train(lambda: step(qd, pd), n=10, reps=5)
+        n_params = sum(t.numel() for t in mod.parameters())
+        bnd = step_bound(q, p, cfg, n_params, peak)
+        kernels, launches = profile_calls(lambda: step(qd, pd))
+        w_ms, d_ms = busy_share(lambda: [step(qd, pd) for _ in range(10)])
+        top = top_kernels(lambda: step(qd, pd))
+        log(f"10a {short}: the step's top device kernels (name, ms, count): {top}")
+        res.update(top_kernels=top, ms=ms, bound_ms=bnd[0], bound_by=bnd[1], params=n_params,
+                   gflop=train_step_ops(q, p, cfg) / 1e9,
+                   valid_tokens=int((q >= 0).sum() + (p >= 0).sum()),
+                   device_kernels=len(kernels), launch_calls=launches,
+                   busy=d_ms / w_ms if d_ms else None, ms_wall_10=w_ms / 10)
+        out[short] = res
+        log(f"10a {short}: loss {res['loss']:.5f} (CPU {res['loss_cpu']:.5f}), accuracy "
+            f"{res['accuracy']:.4f} (CPU {res['accuracy_cpu']:.4f}), gradient cosine >= "
+            f"{res['grad_cos_min']:.6f}, {res['params_compared']} parameters compared "
+            f"after the step ({res['params_off']} off, {res['params_counted']} counted); "
+            f"{n_params} parameters, {res['valid_tokens']} valid tokens, "
+            f"{res['gflop']:.1f} GFLOP; step {share(ms, bnd)}; {len(kernels)} device "
+            f"kernels a step; busy over 10 steps "
+            + (f"{100 * res['busy']:.1f}%" if res["busy"] else "not measured")
+            + f" ({res['ms_wall_10']:.2f} ms a step by the host's clock)")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+class Timed:
+    """Wraps a module's function: records each call's wall seconds and
+    result (the seat is restored on exit)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def rec(*a, **kw):
+            t0 = time.perf_counter()
+            out = self.real(*a, **kw)
+            self.calls.append((time.perf_counter() - t0, out))
+            return out
+
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def loop_split(dev, texts, pre, steps=20):
+    """The pretraining loop's time split over ``steps`` steps: the host's
+    sampler + tokenizer per step (perf_counter), the train step on the
+    card per step (CUDA events over back-to-back steps on pre-sampled
+    batches), and the whole loop's busy share (``pretrain_encoder``)."""
+    import numpy as np
+    import torch
+
+    from rag_challenge_2_tpu_torch.models.encoder import EncoderConfig, tokenize_batch
+    from rag_challenge_2_tpu_torch.models.pretrain import PairSampler
+    from rag_challenge_2_tpu_torch.models.train import TrainConfig, init_training
+    from rag_challenge_2_tpu_torch.utils.timing import cuda_ms_train
+
+    cfg = EncoderConfig()
+    sampler = PairSampler(texts, pre, device=dev)
+    rng = np.random.default_rng(pre.seed)
+    t0 = time.perf_counter()
+    batches = []
+    for _ in range(steps):
+        qs, ps, _ = sampler.sample(rng)
+        batches.append((torch.from_numpy(tokenize_batch(qs, pre.max_len, cfg.vocab_bits)),
+                        torch.from_numpy(tokenize_batch(ps, pre.max_len, cfg.vocab_bits))))
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    _, _, step = init_training(cfg, TrainConfig(lr=3e-4), dev)
+    dev_batches = [(q.to(dev), p.to(dev)) for q, p in batches]
+    it = iter(range(10 ** 9))
+    step_ms = cuda_ms_train(lambda: step(*dev_batches[next(it) % steps]), n=steps, reps=3)
+    def host(texts):
+        t = torch.from_numpy(tokenize_batch(texts, pre.max_len, cfg.vocab_bits))
+        return t.pin_memory() if dev.type == "cuda" else t
+
+    def loop():
+        # pretrain_encoder's loop body: sample, tokenize, pin, step
+        for _ in range(steps):
+            qs, ps, _ = sampler.sample(rng)
+            step(host(qs), host(ps))
+
+    w_ms, d_ms = busy_share(loop)
+    return dict(sampler_ms=host_ms, step_ms=step_ms, loop_ms=w_ms / steps,
+                busy=d_ms / w_ms if d_ms else None)
+
+
+def phase10b_auto_pretrain(dev, ctx9, steps=300):
+    """``Pipeline.create_vector_dbs`` on phase 9b's corpus with no saved
+    params: the auto-pretrain (300 steps, default PretrainConfig, host
+    teacher), the saved npz, the index; the ``offline`` + BM25 preset then
+    answers 9b's 16 questions through K1 + K2 (against a CPU pipeline on
+    the same embeddings); the npz through the CPU encoder against the
+    card's; the loop's time split; ``eval_hybrid_e2e`` with the trained
+    encoder (K1 + K2), card against CPU."""
+    import os
+    import numpy as np
+
+    import rag_challenge_2_tpu_torch.models.pretrain as pretrain_mod
+    from rag_challenge_2_tpu_torch.eval.e2e import ExtractiveStubProvider
+    from rag_challenge_2_tpu_torch.eval.encoder_quality import eval_hybrid_e2e
+    from rag_challenge_2_tpu_torch.index.build import load_chunked_reports
+    from rag_challenge_2_tpu_torch.models.encoder import EmbeddingModel, EncoderConfig
+    from rag_challenge_2_tpu_torch.models.pretrain import PretrainConfig, load_params
+    from rag_challenge_2_tpu_torch.pipeline import Pipeline
+
+    log("== phase 10b: the auto-pretrain through Pipeline.create_vector_dbs "
+        "(phase 9b's corpus, no saved params)")
+    t_phase = time.perf_counter()
+    root = ctx9["root"]
+    rc = pipeline_presets()["offline+bm25"]
+    pipe = Pipeline(root, rc, provider=ExtractiveStubProvider(), device=dev)
+    params = pipe.paths.databases_path / "encoder_params.npz"
+    check(not params.exists(), f"{params} exists before the auto-pretrain")
+    env = {k: os.environ.pop(k, None) for k in ("RAGTPU_AUTO_PRETRAIN",
+                                                "RAGTPU_AUTO_PRETRAIN_STEPS")}
+    os.environ["RAGTPU_AUTO_PRETRAIN_STEPS"] = str(steps)    # 300: the default
+    try:
+        with Timed(pretrain_mod, "pretrain_encoder") as pt:
+            _, t_dbs = wall(pipe.create_vector_dbs, dev)
+    finally:
+        os.environ.pop("RAGTPU_AUTO_PRETRAIN_STEPS")
+        os.environ.update({k: v for k, v in env.items() if v is not None})
+    check(len(pt.calls) == 1 and params.exists() and pipe.paths.index_path.exists(),
+          f"create_vector_dbs: {len(pt.calls)} pretrainings, params {params.exists()}")
+    t_pre, (trained, info) = pt.calls[0]
+    hist = info["history"]
+    check(hist[-1]["step"] == steps - 1 and hist[-1]["loss"] < hist[0]["loss"],
+          f"the auto-pretrain's loss did not fall: {hist}")
+    texts = [c["text"] for r in load_chunked_reports(pipe.paths.documents_dir)
+             for c in r["content"]["chunks"]]
+    log(f"auto-pretrain: {steps} steps on {len(texts)} chunks in {t_pre:.2f} s = "
+        f"{steps / t_pre:.1f} steps/s; loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, "
+        f"accuracy {hist[0]['accuracy']:.4f} -> {hist[-1]['accuracy']:.4f} (steps "
+        f"{hist[0]['step']} / {hist[-1]['step']}); create_vector_dbs {t_dbs:.2f} s in all")
+
+    # the saved npz: the card's encoder and the CPU's, loaded from it
+    model = load_params(EmbeddingModel(EncoderConfig(), device=dev), params)
+    cpu_model = load_params(EmbeddingModel(EncoderConfig(), device="cpu"), params)
+    sample = texts[:: max(1, len(texts) // 12)][:12]
+    a, b, t = model.embed(sample), cpu_model.embed(sample), trained.embed(sample)
+    cos = float(((a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                                   * np.linalg.norm(b, axis=1))).min())
+    check(cos >= 0.99999 and float(np.abs(a - t).max()) <= 1e-6,
+          f"the saved params through the CPU encoder: cos {cos}")
+
+    # 9b's questions over the trained index, card against CPU
+    embed = EmbedOnce(model, dev)
+    gp = Pipeline(root, rc, embedder=embed, provider=ExtractiveStubProvider(), device=dev)
+    proc = gp.build_processor()
+    zero_counts()
+    with FirstCalls() as first:
+        payloads, t_q = wall(lambda: [proc.process_question(q["question"], q["schema"])
+                                      for q in ctx9["questions"]], dev)
+    counts = read_counts()
+    errs = check_first_calls("10b (pipeline, trained encoder)", first.calls)
+    cproc = Pipeline(root, rc, embedder=embed.cached, provider=ExtractiveStubProvider(),
+                     device="cpu").build_processor()
+    tied = sum(same_ask(f"10b: {q['question']}",
+                        json.loads(json.dumps(g, ensure_ascii=False)),
+                        json.loads(json.dumps(cproc.process_question(
+                            q["question"], q["schema"]), ensure_ascii=False)), K1_TOL)
+               for q, g in zip(ctx9["questions"], payloads))
+    n_q = len(ctx9["questions"])
+    per_q = {k: v / n_q for k, v in counts.items()}
+    check(tied <= 1 and per_q["dense_topk"] > 0 and per_q["span_gather"] > 0,
+          f"10b questions: {tied} reordered ties, launches {per_q}")
+    log(f"{n_q} questions over the trained index: {t_q / n_q * 1e3:.1f} ms each, launches "
+        f"a question {per_q}, == the CPU pipeline's (reordered ties: {tied}); the saved "
+        f"params through the CPU encoder: cos >= {cos:.7f} on {len(sample)} chunks")
+
+    # eval_hybrid_e2e with the trained encoder: the routed engine (K1 + K2)
+    e2e_embed = EmbedOnce(model, dev)
+    zero_counts()
+    e2e, t_e2e = wall(lambda: eval_hybrid_e2e(e2e_embed, device=dev), dev)
+    e2e_counts = read_counts()
+    e2e_cpu = eval_hybrid_e2e(e2e_embed.cached, device="cpu")
+    check(abs(e2e["hit@10"] - e2e_cpu["hit@10"]) <= 1 / 17 + 1e-9
+          and e2e_counts["dense_topk"] > 0,
+          f"eval_hybrid_e2e: card {e2e} vs CPU {e2e_cpu}, launches {e2e_counts}")
+    log(f"eval_hybrid_e2e (trained encoder): card {e2e} in {t_e2e:.2f} s, CPU {e2e_cpu}; "
+        f"launches over its 17 questions {e2e_counts}")
+
+    split = loop_split(dev, texts, PretrainConfig())
+    log(f"the loop over 20 steps: sampler + tokenizer {split['sampler_ms']:.2f} ms a step "
+        f"(host), train step {split['step_ms']:.2f} ms (CUDA events), the loop "
+        f"{split['loop_ms']:.2f} ms a step with the card "
+        + (f"{100 * split['busy']:.1f}% busy" if split["busy"] else "busy: not measured"))
+    return dict(steps=steps, chunks=len(texts), pretrain_s=t_pre, steps_s=steps / t_pre,
+                create_vector_dbs_s=t_dbs, loss_first=hist[0]["loss"],
+                loss_last=hist[-1]["loss"], accuracy_first=hist[0]["accuracy"],
+                accuracy_last=hist[-1]["accuracy"], cpu_cos=cos,
+                ms_per_question=t_q / n_q * 1e3, launches_per_question=per_q, tied=tied,
+                kernel_errs=errs, e2e=e2e, e2e_cpu=e2e_cpu,
+                e2e_launches_per_question={k: v / 17 for k, v in e2e_counts.items()},
+                split=split, seconds=time.perf_counter() - t_phase)
+
+
+def phase10c_device_teacher(dev, texts, steps=20):
+    """20 pretraining steps with ``host_teacher=False``: the mining teacher
+    is ``bm25_scores`` on the card (K2); its launches per step, and its
+    scores against ``HostBM25Scorer`` on the same queries."""
+    import numpy as np
+
+    from rag_challenge_2_tpu_torch.models.pretrain import (
+        PairSampler, PretrainConfig, pretrain_encoder)
+
+    log("== phase 10c: the device teacher (host_teacher=False)")
+    t0 = time.perf_counter()
+    pre = PretrainConfig(steps=steps, host_teacher=False)
+    zero_counts()
+    with FirstCalls() as first:
+        (_, info), t = wall(lambda: pretrain_encoder(texts, pre_cfg=pre, device=dev,
+                                                     log_every=1), dev)
+    k2 = read_counts()["span_gather"]
+    errs = check_first_calls("10c (device teacher)", first.calls)
+    check(k2 > 0 and all(np.isfinite(h["loss"]) for h in info["history"]),
+          f"the device teacher: {k2} K2 launches, history {info['history'][-1]}")
+    host = PairSampler(texts, PretrainConfig(), device=dev)
+    card = PairSampler(texts, pre, device=dev)
+    check(card._sparse.indptr.device.type == "cuda", "the device teacher's CSR is not on the card")
+    rng = np.random.default_rng(10)
+    queries = [card._crop(texts[int(i)], rng) for i in rng.integers(0, len(texts), 64)]
+    a, b = card._teacher_scores(queries), host._teacher_scores(queries)
+    err = float(np.abs(a - b).max())
+    check(np.allclose(a, b, rtol=2e-5, atol=2e-5), f"device teacher vs host: {err}")
+    log(f"{steps} steps in {t:.2f} s ({steps / t:.1f} steps/s), {k2} K2 launches = "
+        f"{k2 / steps:.2f} a step; teacher scores of 64 crops x {len(texts)} chunks on the "
+        f"card == HostBM25Scorer within 2e-5 (max |diff| {err:.2e})")
+    return dict(steps=steps, steps_s=steps / t, k2_launches=k2,
+                k2_per_step=k2 / steps, teacher_err=err, kernel_errs=errs,
+                seconds=time.perf_counter() - t0)
+
+
+def phase10d_quality(dev, seed, ict_steps=5000, supervised_steps=2000, ablation_steps=200):
+    """``run_quality_eval`` on the card: the default recipe at its recorded
+    5,000 steps, the four ablation arms at 200 (the smoke's time limit),
+    the supervised stage at 2,000; every arm beside docs/ENCODER_QUALITY.json; gates: BM25 equals
+    the CPU's, the default recipe >= 0.55 hit@10 and >= 0.2 above the
+    random encoder; the K3 / K2 launches of ``eval_hybrid``."""
+    import rag_challenge_2_tpu_torch.eval.encoder_quality as eq
+
+    log(f"== phase 10d: the encoder quality eval on the card ({ict_steps} steps, "
+        f"ablations {ablation_steps}, supervised {supervised_steps})")
+    t0 = time.perf_counter()
+    lines = []
+    zero_counts()
+    with Timed(eq, "eval_hybrid") as hy, FirstCalls() as first:
+        res = eq.run_quality_eval(ict_steps=ict_steps, supervised_steps=supervised_steps,
+                                  batch_size=64, seed=seed, log=lines.append, device=dev,
+                                  ablation_steps=ablation_steps)
+    counts = read_counts()
+    errs = check_first_calls("10d (quality eval)", first.calls)
+    for ln in lines:
+        log("  " + ln)
+    bm25_cpu = eq.eval_bm25(eq.build_dataset(seed=seed), device="cpu")
+    alias, rand = res["encoder_alias_distill"]["hit@10"], res["encoder_random_init"]["hit@10"]
+    for arm, m in res.items():
+        rec = QUALITY_RECORD.get(arm)
+        log(f"{arm}: hit@10 {m['hit@10']} mrr {m['mrr']}"
+            + (f" (recorded {rec[0]} / {rec[1]})" if rec else ""))
+    check(res["bm25"] == bm25_cpu, f"bm25 on the card {res['bm25']} vs the CPU {bm25_cpu}")
+    check(len(hy.calls) == 2 and counts["stream_topk"] > 0 and counts["span_gather"] > 0,
+          f"the quality eval's launches {counts}")
+    check(alias >= 0.55 and alias >= rand + 0.2,
+          f"encoder_alias_distill hit@10 {alias} (random init {rand})")
+    out = dict(results=res, bm25_cpu=bm25_cpu, launches=counts, kernel_errs=errs,
+               hybrid_s=[c[0] for c in hy.calls], ict_steps=ict_steps,
+               ablation_steps=ablation_steps, supervised_steps=supervised_steps,
+               seconds=time.perf_counter() - t0)
+    log(f"the quality eval's launches {counts} (two eval_hybrid calls of 200 stacked "
+        f"queries, one eval_bm25); phase 10d took {out['seconds']:.1f} s")
+    return out
+
+
+def cli_train_chain(root, env, device, auto_steps, train_steps):
+    """``parse-pdfs`` → ``process-reports`` (the auto-pretrain) →
+    ``train-encoder --steps 40`` → ``process-reports`` (the saved params
+    loaded) → ``query``, each in a subprocess on the card."""
+    def run(*args):
+        out = subprocess.run(
+            [sys.executable, "-m", "rag_challenge_2_tpu_torch", *args, "--root", str(root),
+             "--device", device], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        check(out.returncode == 0, f"CLI {args[0]}: {out.stderr[-2000:]}")
+        return out.stdout
+
+    run("parse-pdfs")
+    first = run("process-reports")
+    check(f"ICT-pretraining {auto_steps} steps" in first,
+          f"process-reports did not pretrain: {first}")
+    trained = json.loads(run("train-encoder", "--steps", str(train_steps))
+                         .strip().splitlines()[-1])
+    check(trained["step"] == train_steps - 1 and Path(trained["params"]).exists(),
+          f"train-encoder: {trained}")
+    second = run("process-reports")
+    check("loaded corpus-pretrained params" in second and "ICT-pretraining" not in second,
+          f"process-reports did not load the saved params: {second}")
+    hits = [ln for ln in run("query", "--company", COMPANY, "--question",
+                             f"{COMPANY}2024年营业收入是多少？", "--use-bm25").splitlines()
+            if QUERY_LINE.match(ln)]
+    check(3 <= len(hits) <= 5, f"query: {hits}")
+    return dict(train=trained, hits=len(hits))
+
+
+def cli_eval(path, env, device, ict_steps, supervised_steps):
+    out = subprocess.run(
+        [sys.executable, "-m", "rag_challenge_2_tpu_torch", "eval-encoder", "--ict-steps",
+         str(ict_steps), "--supervised-steps", str(supervised_steps), "--out", str(path),
+         "--device", device],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"eval-encoder: {out.stderr[-2000:]}")
+    res = json.loads(path.read_text("utf-8"))
+    check(json.loads(out.stdout.strip().splitlines()[-1]) == res
+          and set(QUALITY_RECORD) | {"hybrid_random_init"} == set(res),
+          f"eval-encoder's JSON: {sorted(res)}")
+    return res
+
+
+def phase10e_cli(work, device="cuda", auto_steps=300, train_steps=40, ict_steps=50,
+                 supervised_steps=20):
+    """The training commands in subprocesses on the card, in parallel: the
+    train chain on a copy of ``data/test_set`` and ``eval-encoder`` at 50 /
+    20 steps."""
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    log("== phase 10e: train-encoder and eval-encoder through the CLI")
+    t0 = time.perf_counter()
+    root = work / "cli_train"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(ROOT / "data" / "test_set", root)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RAGTPU_AUTO_PRETRAIN", "RAGTPU_AUTO_PRETRAIN_STEPS")}
+    env.update(PYTHONPATH=str(ROOT), RAGTPU_AUTO_PRETRAIN_STEPS=str(auto_steps))
+    with ThreadPoolExecutor(2) as ex:
+        chain = ex.submit(cli_train_chain, root, env, device, auto_steps, train_steps)
+        ev = ex.submit(cli_eval, work / "eval_encoder.json", env, device, ict_steps,
+                       supervised_steps)
+        chain, ev = chain.result(), ev.result()
+    out = dict(train=chain["train"], query_hits=chain["hits"], eval_arms=sorted(ev),
+               eval=ev, seconds=time.perf_counter() - t0)
+    log(f"CLI: parse-pdfs, process-reports (auto-pretrain {auto_steps} steps), "
+        f"train-encoder --steps {train_steps} ({chain['train']}), process-reports (saved "
+        f"params loaded), query ({chain['hits']} hits); eval-encoder --ict-steps "
+        f"{ict_steps} --supervised-steps {supervised_steps}: every arm's key; phase 10e "
+        f"took {out['seconds']:.1f} s")
+    return out
+
+
+def phase10_training(dev, seed, work, ctx9):
+    """Phase 10: encoder training on the card (10a-10e; 10e beside 10d)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rag_challenge_2_tpu_torch.index.build import load_chunked_reports
+    from rag_challenge_2_tpu_torch.pipeline import PipelineConfig
+
+    t0 = time.perf_counter()
+    texts = [c["text"] for r in load_chunked_reports(PipelineConfig(ctx9["root"]).documents_dir)
+             for c in r["content"]["chunks"]]
+    out = {"step": phase10a_step(dev, seed, texts)}
+    out["auto_pretrain"] = phase10b_auto_pretrain(dev, ctx9)
+    out["device_teacher"] = phase10c_device_teacher(dev, texts)
+    # 10e's subprocesses run beside 10d: other host cores, the same card
+    with ThreadPoolExecutor(1) as ex:
+        cli = ex.submit(phase10e_cli, work)
+        out["quality"] = phase10d_quality(dev, seed)
+        out["cli"] = cli.result()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 10 took {out['seconds']:.1f} s")
     return out
 
 
@@ -3707,8 +4253,11 @@ def main(argv=None):
     work.mkdir(parents=True, exist_ok=True)
     p3, ctx3 = phase3_main_path(dev, model, np.random.default_rng(args.seed), work)
     p8 = phase8_qa(dev, model, ctx3, card)
-    p9 = phase9_pipeline(dev, model, args.seed, work)
+    p9, ctx9 = phase9_pipeline(dev, model, args.seed, work)
     del model
+    torch.cuda.empty_cache()
+    p10 = phase10_training(dev, args.seed, work, ctx9)
+    del ctx9
     torch.cuda.empty_cache()
     p7 = dict(hops=phase7a_hop_shapes(dev, gen), deploy=phase7b_deploy(dev, ctx3),
               batcher=phase7e_batcher(dev, ctx3))
@@ -3723,7 +4272,7 @@ def main(argv=None):
 
     log("summary " + json.dumps({"phase3": p3, "phase4": p4, "phase5": p5,
                                  "phase6": p6, "phase7": p7, "phase8": p8, "phase9": p9,
-                                 "kernels": k}))
+                                 "phase10": p10, "kernels": k}))
     qa = p8["launches"]
     hyb = p7["deploy"]["hybrid_expansion+bm25"]["launches_per_request"]
     big = [c for c in k["k1"] if c["N"] == 250_000 and c["dtype"] == "bfloat16"][0]
@@ -3732,8 +4281,19 @@ def main(argv=None):
     p9q = p9["pipeline"]["launches_per_question"]
 
     def p9err(kernel):
-        return max([v for key, v in p9["pipeline"]["kernel_errs"].items()
-                    if key.endswith(" " + kernel)] or [0.0])
+        errs = list(p9["pipeline"]["kernel_errs"].items()) + [
+            (f"10{part} {name}", v) for part, ph in (("b", "auto_pretrain"),
+                                                     ("c", "device_teacher"),
+                                                     ("d", "quality"))
+            for name, v in p10[ph]["kernel_errs"].items()]
+        return max([v for key, v in errs if key.endswith(" " + kernel)] or [0.0])
+
+    # phase 10: a pipeline question over the auto-pretrained index (10b),
+    # an eval_hybrid_e2e question (10b), a device-teacher training step
+    # (10c) and one quality eval (10d)
+    p10q = p10["auto_pretrain"]["launches_per_question"]
+    p10e2e = p10["auto_pretrain"]["e2e_launches_per_question"]
+    p10eval = p10["quality"]["launches"]
 
     kernels_line = {"kernels": [
         {"name": "dense_topk", "route": "cuda",
@@ -3745,6 +4305,9 @@ def main(argv=None):
          # phase 8: one served QA ask (basic + BM25, 3 routed reports)
          "launches_per_qa_ask": qa["basic"]["dense_topk"],
          "launches_per_pipeline_question": p9q["dense_topk"],
+         "launches_per_pretrained_pipeline_question": p10q["dense_topk"],
+         "launches_per_e2e_quality_question": p10e2e["dense_topk"],
+         "launches_per_quality_eval": p10eval["dense_topk"],
          "max_abs_err": max(k["k1_err"], p7["hops"]["err"], p9err("dense_topk")),
          "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
          "bound_by": big["bound_by"], "library_ms": big["library_ms"]},
@@ -3756,6 +4319,10 @@ def main(argv=None):
          + p5["engine"]["win_start"]["launches"]["span_gather"],
          "launches_per_qa_ask": qa["basic"]["span_gather"],
          "launches_per_pipeline_question": p9q["span_gather"],
+         "launches_per_pretrained_pipeline_question": p10q["span_gather"],
+         # the device teacher's mining (host_teacher=False)
+         "launches_per_training_step": p10["device_teacher"]["k2_per_step"],
+         "launches_per_quality_eval": p10eval["span_gather"],
          "max_abs_err": 0.0,
          # the deployment's BM25 calls (phase 3): G = 8 x 64, W = max_postings
          "shape": f"G={p3['k2']['G']} W={p3['k2']['W']} arrays={p3['k2']['arrays']}",
@@ -3801,6 +4368,8 @@ def main(argv=None):
          # phase 8: one served hybrid_expansion ask on the f32 deployment store
          "launches_per_qa_hybrid_ask": (qa["hybrid_expansion"]["stream_topk"]
                                         if short == "f32" else None),
+         # phase 10d: eval_hybrid's 200 stacked queries on an f32 store
+         "launches_per_quality_eval": (p10eval["stream_topk"] if short == "f32" else None),
          "max_abs_err": max(p6["k3_1m"][long]["err"], p7["hops"]["err"],
                             p6["engine"][f"search_many_{long}"]["slot_err"]),
          "ms": p6["k3_1m"][long]["ms"], "plain_ms": p6["k3_1m"][long]["plain_ms"],

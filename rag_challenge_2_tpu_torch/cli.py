@@ -14,16 +14,25 @@ defaults, over a data-set root (``<root>/pdf_reports``, ``subset.csv``,
     python -m rag_challenge_2_tpu_torch process-reports [--root R] [--config C]
     python -m rag_challenge_2_tpu_torch process-questions [--root R] \
         [--config qwen] [--use-hyde|--no-hyde] [--use-multi-query|--no-multi-query]
+    python -m rag_challenge_2_tpu_torch train-encoder [--root R] [--config base] \
+        [--steps 200] [--batch-size 64] [--out PARAMS.npz]
+    python -m rag_challenge_2_tpu_torch eval-encoder [--ict-steps 5000] \
+        [--supervised-steps 2000] [--batch-size 64] [--out RESULTS.json]
     python -m rag_challenge_2_tpu_torch analyze-similarity [--root R] \
         [--config C] [--doc 0] [--out DIR]
     python -m rag_challenge_2_tpu_torch rank --submissions-dir DIR \
         --answers FILE [--max-questions 60] [--csv-out FILE]
 
 Every command that touches tensors takes ``--device`` (``cuda`` by
-default, ``cpu`` for the plain versions).  ``process-reports`` embeds with
-``<root>/databases/encoder_params.npz`` when it exists; without it the
-JAX package pretrains an encoder first, which this package cannot yet: set
-``RAGTPU_AUTO_PRETRAIN=0`` to index with the seeded random weights.
+default, ``cpu`` for the plain versions).  ``train-encoder`` pretrains
+the encoder on the root's chunked reports (``models/pretrain.py``) and
+saves its weights, by default to ``<root>/databases/encoder_params.npz``;
+``process-reports`` embeds with that file when it exists, and without it
+pretrains an encoder first (``RAGTPU_AUTO_PRETRAIN_STEPS``, 300 by
+default; ``RAGTPU_AUTO_PRETRAIN=0`` indexes with the seeded random
+weights).  ``eval-encoder`` runs the encoder quality experiment
+(``eval/encoder_quality.run_quality_eval``) and prints its results as one
+JSON line.
 
 ``query`` and ``serve`` take either a root (``--root --config``, as
 ``main.py``: the root's index and encoder params) or a saved index::
@@ -213,6 +222,31 @@ def run_stage(args: argparse.Namespace) -> List[str]:
         result = _pipeline(args, use_hyde=args.use_hyde,
                            use_multi_query=args.use_multi_query).process_questions()
         return [json.dumps(result["statistics"], ensure_ascii=False)]
+    if cmd == "train-encoder":
+        from .index.build import load_chunked_reports
+        from .models.pretrain import PretrainConfig, pretrain_encoder, save_params
+
+        p = _pipeline(args)
+        reports = load_chunked_reports(p.paths.documents_dir)
+        texts = [c["text"] for r in reports for c in r["content"]["chunks"]]
+        model, stats = pretrain_encoder(
+            texts, pre_cfg=PretrainConfig(steps=args.steps, batch_size=args.batch_size),
+            device=args.device)
+        out = args.out or (p.paths.databases_path / "encoder_params.npz")
+        save_params(model, out)
+        return [json.dumps({"params": str(out), **stats["final"]}, ensure_ascii=False)]
+    if cmd == "eval-encoder":
+        from .eval.encoder_quality import run_quality_eval
+
+        res = run_quality_eval(
+            ict_steps=args.ict_steps, supervised_steps=args.supervised_steps,
+            batch_size=args.batch_size, log=lambda m: print(m, flush=True),
+            device=args.device)
+        line = json.dumps(res, ensure_ascii=False)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                f.write(line)
+        return [line]
     if cmd == "analyze-similarity":
         from .eval.similarity import analyze_document
         from .index import load_index
@@ -277,6 +311,23 @@ def build_parser() -> argparse.ArgumentParser:
     _root_options(s, "qwen")
     _switch(s, "--use-hyde", "--no-hyde", "use_hyde")
     _switch(s, "--use-multi-query", "--no-multi-query", "use_multi_query")
+    s.add_argument("--device", default="cuda")
+
+    s = sub.add_parser("train-encoder",
+                       help="self-supervised (ICT) encoder pretraining on the chunked corpus")
+    _root_options(s, "base")
+    s.add_argument("--steps", type=int, default=200)
+    s.add_argument("--batch-size", type=int, default=64)
+    s.add_argument("--out", default=None,
+                   help="params npz (default <databases>/encoder_params.npz)")
+    s.add_argument("--device", default="cuda")
+
+    s = sub.add_parser("eval-encoder",
+                       help="encoder retrieval-quality experiment (BASELINE config 4)")
+    s.add_argument("--ict-steps", type=int, default=5000)
+    s.add_argument("--supervised-steps", type=int, default=2000)
+    s.add_argument("--batch-size", type=int, default=64)
+    s.add_argument("--out", default=None, help="write results json here")
     s.add_argument("--device", default="cuda")
 
     s = sub.add_parser("analyze-similarity",

@@ -30,8 +30,8 @@ eval/encoder_quality.py and no text from the reference).
 Port of ``rag_challenge_2_tpu/eval/e2e.py``: the PDF writer, the fixture,
 the golden questions and the answerer are host code, copied; ``run_e2e``
 drives the port's ``Pipeline`` and encoder on ``device`` (the card unless
-the caller names another).  Pretraining (``pretrain_steps > 0``) is not
-ported yet and raises.
+the caller names another), pretraining the encoder there first when
+asked (``pretrain_steps > 0``).
 """
 
 from __future__ import annotations
@@ -521,6 +521,22 @@ class ExtractiveStubProvider(StubProvider):
 # ----------------------------------------------------------------- runner
 
 
+def fixture_lines() -> List[str]:
+    """The fixture's lines of at least 8 characters, page by page: the
+    pretraining corpus of ``run_e2e(pretrain_steps > 0)``.  A table page
+    gives its text and then one line per row (the page as
+    ``eval/encoder_quality.eval_hybrid_e2e`` reads it); the reference
+    splits every page as a string, which fails on the table pages."""
+    lines = []
+    for doc in fixture_docs():
+        for page in doc["pages"]:
+            text = page if isinstance(page, str) else (
+                page["text"] + "\n"
+                + "\n".join(" ".join(row) for row in page.get("table", [])))
+            lines.extend(ln for ln in text.split("\n") if len(ln) >= 8)
+    return lines
+
+
 def run_e2e(
     root: Path,
     embedder=None,
@@ -531,21 +547,19 @@ def run_e2e(
 ) -> Dict:
     """Drive the FULL pipeline over the fixture and score the answers.
 
-    ``embedder`` defaults to a random-init encoder (seed 0, ``max_len``
-    128) on ``device`` — BM25 rides along (``use_bm25``), matching the
-    shipped hybrid preset.  ``pretrain_steps > 0`` raises: the port cannot
-    pretrain the encoder yet.
+    ``embedder`` defaults to an encoder (``max_len`` 128) on ``device``:
+    random weights (seed 0), or with ``pretrain_steps > 0`` pretrained on
+    the fixture's lines (batch 32) — BM25 rides along (``use_bm25``),
+    matching the shipped hybrid preset.
 
     Returns ``{"value_accuracy", "page_hit", "n", "per_question"}`` where
     value_accuracy uses the competition comparator (1%-relative tolerance
     for numbers — eval/scorer.compare) and page_hit checks the golden
     page appears in the answer's validated references.
     """
-    from ..pipeline.run import Pipeline, RunConfig, no_pretraining
+    from ..pipeline.run import Pipeline, RunConfig
     from .scorer import compare
 
-    if pretrain_steps > 0:
-        no_pretraining(f"pretrain_steps = {pretrain_steps}")
     device = resolve_device(device)
     root = Path(root)
     build_fixture(root)
@@ -564,8 +578,17 @@ def run_e2e(
 
         from ..models.encoder import EmbeddingModel, EncoderConfig
 
-        model = EmbeddingModel(EncoderConfig(max_len=128), device=device,
-                               generator=torch.Generator().manual_seed(0))
+        cfg = EncoderConfig(max_len=128)
+        if pretrain_steps > 0:
+            from ..models.pretrain import PretrainConfig, pretrain_encoder
+
+            model, _ = pretrain_encoder(
+                fixture_lines(), enc_cfg=cfg, device=device,
+                pre_cfg=PretrainConfig(steps=pretrain_steps, batch_size=32),
+            )
+        else:
+            model = EmbeddingModel(cfg, device=device,
+                                   generator=torch.Generator().manual_seed(0))
         embedder_fn = model.embed
 
     pipe = Pipeline(root, rc, embedder=embedder_fn, provider=provider,

@@ -1,11 +1,15 @@
-"""Text embedding encoder (inference).
+"""Text embedding encoder.
 
 Port of ``rag_challenge_2_tpu/models/encoder.py``: a mean-pooled
 transformer encoder over hashed-vocabulary tokens, then a linear
 projection and an L2 norm, so inner product == cosine.  Parameters are
-f32 and activations bf16, as in the reference; weights saved by the
-reference's ``models/pretrain.save_params`` load through
-:func:`load_params_npz` + :func:`from_jax_params`.
+f32 and activations bf16, as in the reference.  :class:`Encoder` trains
+under autograd (``models/train.py``); :class:`EmbeddingModel` is the
+inference wrapper.  Weights cross between the packages in the
+reference's ``models/pretrain.save_params`` layout, both ways:
+:func:`load_params_npz` + :func:`from_jax_params` read it,
+:func:`to_jax_params` writes it.  Random weights are drawn as flax draws
+them (:meth:`Encoder.init_weights`).
 
 Attention is written out in plain PyTorch: the reference has no kernel
 here.  Where flax and torch defaults differ, the reference's numerics are
@@ -30,6 +34,10 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..utils import tokenize as tok
 
+# the std of a standard normal truncated at +-2 (flax's lecun_normal
+# divides by it, so the truncated draw keeps a std of 1/sqrt(fan_in))
+TRUNC_NORMAL_STD = 0.87962566103423978
+
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
@@ -41,6 +49,7 @@ class EncoderConfig:
     max_len: int = 512
     out_dim: int = 1024
     dtype: torch.dtype = torch.bfloat16
+    moe_experts: int = 0          # >0: odd blocks take a top-2 MoE FFN
 
     @property
     def vocab_size(self) -> int:
@@ -48,12 +57,10 @@ class EncoderConfig:
 
 
 def _layer_norm(x, scale, bias, dtype, eps: float = 1e-6):
-    """flax ``LayerNorm``: f32 statistics (fast variance), result in dtype."""
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale + bias).to(dtype)
+    """flax ``LayerNorm``: f32 statistics and affine, result in dtype (one
+    fused op forward and backward; the variance is two-pass where flax
+    takes E[x^2] - E[x]^2, equal up to f32 rounding)."""
+    return F.layer_norm(x.float(), scale.shape, scale, bias, eps).to(dtype)
 
 
 def _dense(x, lin: nn.Linear, dtype):
@@ -107,6 +114,10 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "moe_experts > 0: the MoE FFN (models/moe.py) is multi-GPU "
+                "work, not ported yet (ROADMAP.md, A.14)")
         self.cfg = cfg
         self.tok_embed = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.d_model))
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_len, cfg.d_model))
@@ -115,16 +126,24 @@ class Encoder(nn.Module):
         self.proj = nn.Linear(cfg.d_model, cfg.out_dim)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """Random weights from ``generator``: normal embeddings and kernels
-        scaled by 1/sqrt(fan_in), zero biases, unit LayerNorm scales."""
+        """Random weights from ``generator``, from flax's distributions:
+        embeddings ``N(0, 1/d_model)`` (``nn.Embed``'s default); every
+        dense and attention kernel ``lecun_normal``, a normal of std
+        ``1/sqrt(fan_in)/0.8796`` truncated at two of its stds; zero
+        biases; LayerNorms at unit scale and zero bias."""
         with torch.no_grad():
             for p in (self.tok_embed, self.pos_embed):
                 p.normal_(0.0, 1.0 / math.sqrt(self.cfg.d_model),
                           generator=generator)
             for mod in self.modules():
                 if isinstance(mod, nn.Linear):
-                    mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
-                                       generator=generator)
+                    std = 1.0 / math.sqrt(mod.in_features) / TRUNC_NORMAL_STD
+                    nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std,
+                                          2.0 * std, generator=generator)
+                    mod.bias.zero_()
+            for mod in self.modules():
+                if isinstance(mod, _LayerNorm):
+                    mod.scale.fill_(1.0)
                     mod.bias.zero_()
 
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
@@ -134,7 +153,10 @@ class Encoder(nn.Module):
         L = token_ids.shape[1]
         pad = token_ids >= 0
         ids = token_ids.clamp(min=0).long()
-        x = self.tok_embed.to(dt)[ids] + self.pos_embed.to(dt)[:L][None]
+        # rows gathered, then cast: flax's bf16 table read, without casting
+        # the whole table (and its gradient) on every call
+        x = (F.embedding(ids, self.tok_embed).to(dt)
+             + self.pos_embed[:L].to(dt)[None])
         mask = (pad[:, None, :, None] & pad[:, None, None, :])  # [B, 1, L, L]
         for blk in self.blocks:
             x = blk(x, mask)
@@ -180,6 +202,64 @@ def load_params_npz(path: Path) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
+def _n_blocks(keys, fmt: str) -> int:
+    n = 0
+    while fmt.format(n) in keys:
+        n += 1
+    return n
+
+
+def _dense_layout(n_blocks: int) -> Dict[str, tuple]:
+    """Each reference dense name → (state-dict prefix, whether its kernel
+    is attention's out kernel ``[heads, head_dim, out]``, whether its
+    kernel and bias split the output into ``[heads, head_dim]``)."""
+    out = {"proj": ("proj", False, False)}
+    for i in range(n_blocks):
+        p, q = f"block{i}", f"blocks.{i}"
+        for name in ("query", "key", "value"):
+            out[f"{p}/attn/{name}"] = (f"{q}.{name}", False, True)
+        out[f"{p}/attn/out"] = (f"{q}.out", True, False)
+        out[f"{p}/mlp_in"] = (f"{q}.mlp_in", False, False)
+        out[f"{p}/mlp_out"] = (f"{q}.mlp_out", False, False)
+    return out
+
+
+# the reference's names → the state dict's: outside the blocks, then each
+# block's LayerNorms (block i: ``block{i}/…`` → ``blocks.{i}.…``)
+_PLAIN = {"tok_embed/embedding": "tok_embed", "pos_embed/embedding": "pos_embed",
+          "ln_f/scale": "ln_f.scale", "ln_f/bias": "ln_f.bias"}
+_BLOCK_NORMS = {f"{ln}/{part}": f"{ln}.{part}"
+                for ln in ("ln1", "ln2") for part in ("scale", "bias")}
+
+
+def to_jax_params(sd: Dict[str, torch.Tensor], n_heads: int) -> Dict[str, np.ndarray]:
+    """An :class:`Encoder` state dict → the reference's flat flax params
+    (``params/block0/attn/query/kernel`` …, f32 numpy): the exact inverse
+    of :func:`from_jax_params`.  ``n_heads`` splits the attention
+    kernels back into ``[d_model, heads, head_dim]`` (query / key /
+    value, biases ``[heads, head_dim]``) and ``[heads, head_dim,
+    d_model]`` (out)."""
+    def host(name):
+        return sd[name].detach().to("cpu", torch.float32).numpy()
+
+    n = _n_blocks(sd, "blocks.{}.ln1.scale")
+    flat = {f"params/{src}": host(dst) for src, dst in _PLAIN.items()}
+    for i in range(n):
+        flat.update({f"params/block{i}/{src}": host(f"blocks.{i}.{dst}")
+                     for src, dst in _BLOCK_NORMS.items()})
+    for src, (dst, heads_in, heads_out) in _dense_layout(n).items():
+        k = host(dst + ".weight").T                        # [in, out]
+        b = host(dst + ".bias")
+        if heads_in:
+            k = k.reshape(n_heads, -1, k.shape[-1])
+        if heads_out:
+            k = k.reshape(k.shape[0], n_heads, -1)
+            b = b.reshape(n_heads, -1)
+        flat[f"params/{src}/kernel"] = k
+        flat[f"params/{src}/bias"] = b
+    return {k: np.ascontiguousarray(v) for k, v in flat.items()}
+
+
 def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Reference flax params (flat, ``params/block0/attn/query/kernel`` …)
     → an :class:`Encoder` state dict.  Dense kernels are ``[in, out]``
@@ -189,35 +269,19 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     def get(name):
         return torch.from_numpy(np.array(flat["params/" + name], np.float32))
 
-    def dense(src, dst, sd, reshape_in=False):
+    n = _n_blocks(flat, "params/block{}/ln1/scale")
+    sd: Dict[str, torch.Tensor] = {dst: get(src) for src, dst in _PLAIN.items()}
+    for i in range(n):
+        sd.update({f"blocks.{i}.{dst}": get(f"block{i}/{src}")
+                   for src, dst in _BLOCK_NORMS.items()})
+    for src, (dst, heads_in, _) in _dense_layout(n).items():
         k = get(src + "/kernel")
-        b = get(src + "/bias")
-        if reshape_in:                 # [heads, head_dim, out] → [in, out]
+        if heads_in:                   # [heads, head_dim, out] → [in, out]
             k = k.reshape(-1, k.shape[-1])
         else:                          # [in, (heads, head_dim)] → [in, out]
             k = k.reshape(k.shape[0], -1)
         sd[dst + ".weight"] = k.T.contiguous()
-        sd[dst + ".bias"] = b.reshape(-1)
-
-    sd: Dict[str, torch.Tensor] = {
-        "tok_embed": get("tok_embed/embedding"),
-        "pos_embed": get("pos_embed/embedding"),
-        "ln_f.scale": get("ln_f/scale"),
-        "ln_f.bias": get("ln_f/bias"),
-    }
-    dense("proj", "proj", sd)
-    i = 0
-    while f"params/block{i}/ln1/scale" in flat:
-        p, q = f"block{i}", f"blocks.{i}"
-        for ln in ("ln1", "ln2"):
-            sd[f"{q}.{ln}.scale"] = get(f"{p}/{ln}/scale")
-            sd[f"{q}.{ln}.bias"] = get(f"{p}/{ln}/bias")
-        for name in ("query", "key", "value"):
-            dense(f"{p}/attn/{name}", f"{q}.{name}", sd)
-        dense(f"{p}/attn/out", f"{q}.out", sd, reshape_in=True)
-        dense(f"{p}/mlp_in", f"{q}.mlp_in", sd)
-        dense(f"{p}/mlp_out", f"{q}.mlp_out", sd)
-        i += 1
+        sd[dst + ".bias"] = get(src + "/bias").reshape(-1)
     return sd
 
 

@@ -12,6 +12,9 @@ halves:
 * :func:`bm25_scores` — the full ``[B, N]`` score matrix by scatter-add;
   the oracle for tests and small corpora.
 
+:class:`HostBM25Scorer` is the same ``[B, N]`` matrix in numpy, for the
+pretraining sampler's teacher on small corpora (``models/pretrain.py``).
+
 Scoring model: Okapi BM25 with the non-negative (Lucene-style) idf
 ``log(1 + (N - df + 0.5)/(df + 0.5))``, the reference's formula operation
 for operation.
@@ -25,11 +28,12 @@ does not depend on where the engine runs.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..index.schema import SparseIndex
 from .span_gather import gather_posting_spans
 from .topk import NEG_INF
@@ -237,3 +241,90 @@ def encode_queries_host(texts, max_terms: int = 64, vocab_bits: int = 20):
             ids = tok.token_ids(t, vocab_bits)[:max_terms]
             out[i, : len(ids)] = ids
     return np.asarray(out)
+
+
+def encode_queries(texts, max_terms: int = 64, vocab_bits: int = 20,
+                   device: DeviceLike = None) -> torch.Tensor:
+    """:func:`encode_queries_host` put on ``device`` (the card unless the
+    caller names another)."""
+    return torch.from_numpy(encode_queries_host(texts, max_terms, vocab_bits)).to(
+        resolve_device(device))
+
+
+class HostBM25Scorer:
+    """Host (numpy) mirror of :func:`bm25_scores` for SMALL corpora.
+
+    The pretraining teacher (``models/pretrain.PairSampler``) needs a
+    ``[B, N]`` score matrix back on the host every step to pick neighbour
+    passages; the sampler scores locally and the device runs only the
+    train step.
+
+    Same formula and f32 arithmetic as :func:`_gather_contributions`
+    (Lucene idf, k1 / b saturation, per-posting doc length) over the full
+    posting lists, which equals :func:`bm25_scores`' default window;
+    scores agree to f32 rounding.  The CSR is read from ``sparse`` on any
+    device.
+
+    A posting's contribution ``idf(term) * tf * (k1 + 1) / max(tf + k1 *
+    (1 - b + b * dl / avgdl), 1e-9)`` depends on nothing but the posting,
+    so it is computed once for every posting of the corpus (per ``(k1,
+    b)``, on first use) with the reference's f32 operations in its order;
+    a call then copies each query term's span of contributions and row ids
+    and sums them per (query, row) in float64 in the reference's order.
+    The scores equal the JAX package's ``HostBM25Scorer`` bitwise.
+    """
+
+    def __init__(self, sparse: SparseIndex):
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        self.indptr = host(sparse.indptr).astype(np.int64)
+        self.chunk_ids = host(sparse.chunk_ids)
+        self.tf = np.asarray(host(sparse.tf), np.float32)
+        self.df = np.asarray(host(sparse.df), np.float32)
+        self.chunk_len = np.asarray(host(sparse.chunk_len), np.float32)
+        self.avgdl = float(host(sparse.avgdl).reshape(-1)[0])
+        self.n_corpus = max(float((self.chunk_len > 0).sum()), 1.0)
+        self._contrib: Dict[Tuple[float, float], np.ndarray] = {}
+
+    def _contributions(self, k1: float, b: float) -> np.ndarray:
+        """Every posting's f32 contribution, in CSR order."""
+        got = self._contrib.get((k1, b))
+        if got is None:
+            nnz = int(self.indptr[-1])
+            term = np.repeat(np.arange(len(self.df)), np.diff(self.indptr))
+            tfv = self.tf[:nnz]
+            one_minus = np.float32(k1 * (1.0 - b))
+            b_over = np.float32(k1 * b / self.avgdl)
+            denom = tfv + (one_minus + b_over
+                           * self.chunk_len[self.chunk_ids[:nnz].astype(np.int64)])
+            dfv = self.df[term]
+            idf = np.log1p((np.float32(self.n_corpus) - dfv + np.float32(0.5))
+                           / (dfv + np.float32(0.5))).astype(np.float32)
+            got = (idf * tfv * np.float32(k1 + 1.0)
+                   / np.maximum(denom, np.float32(1e-9)))
+            self._contrib[(k1, b)] = got
+        return got
+
+    def scores(self, query_ids, n_rows: int, k1: float = 1.5,
+               b: float = 0.75) -> np.ndarray:
+        """``[B, n_rows]`` f32 scores; ``query_ids`` ``[B, T]`` numpy, -1
+        padded."""
+        B, T = query_ids.shape
+        q = query_ids.astype(np.int64)
+        valid = q >= 0
+        terms = np.where(valid, q, 0)
+        starts = self.indptr[terms]                     # [B, T]
+        counts = np.where(valid, self.indptr[terms + 1] - starts, 0).reshape(-1)
+        if int(counts.sum()) == 0:
+            return np.zeros((B, n_rows), np.float32)
+        contrib = self._contributions(k1, b)
+        spans = [slice(s, s + c) for s, c in
+                 zip(starts.reshape(-1).tolist(), counts.tolist()) if c]
+        rows = np.concatenate([self.chunk_ids[x] for x in spans])
+        weights = np.concatenate([contrib[x] for x in spans])
+        # flat (query, row) bins in (query, term, posting) order: bincount
+        # adds each bin's contributions in that order, as the reference
+        bins = np.repeat((np.arange(B * T) // T) * n_rows, counts) + rows
+        out = np.bincount(bins, weights=weights, minlength=B * n_rows)
+        return out.reshape(B, n_rows).astype(np.float32)

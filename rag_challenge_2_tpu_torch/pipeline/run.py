@@ -10,10 +10,8 @@ client (the original contest proxy is long gone).
 
 Port of ``rag_challenge_2_tpu/pipeline/run.py``: the same ``RunConfig``,
 stages and presets over the port's ingestion, index, engine and encoder,
-on ``device`` (the card unless the caller names another).  One departure
-until the port can train the encoder: where the JAX package pretrains an
-encoder on the corpus before its first index build, the port raises
-(:func:`no_pretraining`).
+on ``device`` (the card unless the caller names another), including the
+encoder's pretraining on the corpus before its first index build.
 """
 
 from __future__ import annotations
@@ -128,8 +126,9 @@ class Pipeline:
                 params = from_jax_params(load_params_npz(params_path))
                 print(f"[encoder] loaded corpus-pretrained params: {params_path}")
             else:
-                print("[encoder] using randomly initialized weights "
-                      "(run `main.py train-encoder` to pretrain on this corpus)")
+                print("[encoder] using randomly initialized weights (run "
+                      "`python -m rag_challenge_2_tpu_torch train-encoder` to "
+                      "pretrain on this corpus)")
             model = EmbeddingModel(EncoderConfig(), params=params,
                                    device=self.device)
             self._embedder = model.embed
@@ -196,19 +195,36 @@ class Pipeline:
         """Chunked reports → one on-device corpus index npz (dense + BM25
         CSR in one artifact — the role of reference :186-202).
 
-        Where no embedder is given and no pretrained encoder params exist,
-        the JAX package ICT-pretrains the encoder on this corpus first (a
+        If no pretrained encoder params exist yet, the encoder is
+        ICT-pretrained on this corpus first, on this pipeline's device (a
         production index built on randomly initialized embeddings is a
-        silent quality trap).  The port cannot train yet: it raises there
-        (:func:`no_pretraining`), unless ``RAGTPU_AUTO_PRETRAIN=0`` asks
-        for the random weights."""
+        silent quality trap), and saved to ``<databases>/encoder_params.npz``
+        for the ``embedder`` to load; disable with
+        ``RAGTPU_AUTO_PRETRAIN=0`` or tune steps via
+        ``RAGTPU_AUTO_PRETRAIN_STEPS``."""
         params_path = self.paths.databases_path / "encoder_params.npz"
         if (
             self._embedder is None
             and not params_path.exists()
             and os.environ.get("RAGTPU_AUTO_PRETRAIN", "1") != "0"
         ):
-            no_pretraining(f"no encoder params at {params_path}")
+            from ..index.build import load_chunked_reports
+            from ..models.pretrain import (
+                PretrainConfig, pretrain_encoder, save_params,
+            )
+
+            texts = [
+                c["text"]
+                for r in load_chunked_reports(self.paths.documents_dir)
+                for c in r["content"]["chunks"]
+            ]
+            steps = int(os.environ.get("RAGTPU_AUTO_PRETRAIN_STEPS", "300"))
+            print(f"[encoder] no saved params — ICT-pretraining {steps} steps "
+                  f"on {len(texts)} chunks (RAGTPU_AUTO_PRETRAIN=0 to skip)")
+            model, _ = pretrain_encoder(
+                texts, pre_cfg=PretrainConfig(steps=steps), device=self.device
+            )
+            save_params(model, params_path)
         CorpusIngestor(self.embedder, with_sparse=True,
                        device=self.device).process_reports(
             self.paths.documents_dir, self.paths.index_path
@@ -298,16 +314,6 @@ class Pipeline:
             submission_name=rc.submission_name,
             pipeline_details=rc.pipeline_details,
         )
-
-
-def no_pretraining(why: str) -> None:
-    """The port has no encoder pretraining yet (the JAX package's
-    ``models/pretrain.py``): stop rather than index with random weights."""
-    raise RuntimeError(
-        f"{why}, and encoder pretraining is not ported to this package yet "
-        "(ROADMAP.md, A.13): pass an embedder, save params with the JAX "
-        "package's `main.py train-encoder`, or set RAGTPU_AUTO_PRETRAIN=0 "
-        "to index with random encoder weights")
 
 
 # ---------------------------------------------------------------- presets

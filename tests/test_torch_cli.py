@@ -3,7 +3,9 @@
 and rebuilds it when the index file's fingerprint changes;
 ``--quantize-int8`` serves from the int8 variant of the index and
 ``--scan-rt`` is accepted; ``--method`` runs the traversal methods and
-prints ``materialize_details`` as one more JSON line."""
+prints ``materialize_details`` as one more JSON line; ``train-encoder`` and
+``eval-encoder`` take ``main.py``'s options, and ``train-encoder``'s npz is
+what ``process-reports`` loads."""
 
 import json
 import os
@@ -157,3 +159,40 @@ def test_serve_builds_the_web_app_and_answers(saved_index):
         "J2023_doc0", "J2024_doc1"}
     assert out["reranker_stats"]["total_requests"] > 0
     assert out["timing"]["vector_search"] > 0
+
+
+@pytest.mark.parametrize("command", ["train-encoder", "eval-encoder"])
+def test_training_commands_take_main_py_options(command):
+    """``train-encoder`` and ``eval-encoder`` have ``main.py``'s options with
+    its defaults, plus ``--device`` (the card by default)."""
+    import main
+
+    want = {p.name: p.default for p in main.cli.commands[command].params}
+    sub = cli.build_parser()._subparsers._group_actions[0].choices[command]
+    got = {a.dest: a.default for a in sub._actions if a.dest != "help"}
+    assert got.pop("device") == "cuda"
+    assert got == want
+
+
+def test_train_encoder_saves_params_that_process_reports_loads(tmp_path, monkeypatch,
+                                                               capsys):
+    """``train-encoder`` on a chunked copy of the test set prints its final
+    step as one JSON line and writes the npz ``process-reports`` then
+    loads (no pretraining there)."""
+    import shutil
+
+    root = tmp_path / "set"
+    shutil.copytree("data/test_set", root)
+    common = ["--root", str(root), "--device", "cpu"]
+    monkeypatch.setenv("RAGTPU_AUTO_PRETRAIN", "0")
+    cli.main(["parse-pdfs", *common, "--parser", "builtin"])
+    cli.main(["process-reports", *common])
+    monkeypatch.delenv("RAGTPU_AUTO_PRETRAIN")
+    capsys.readouterr()
+    cli.main(["train-encoder", *common, "--steps", "2", "--batch-size", "8"])
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["step"] == 1 and np.isfinite(line["loss"])
+    assert line["params"].endswith("databases/encoder_params.npz")
+    cli.main(["process-reports", *common])
+    out = capsys.readouterr().out
+    assert "loaded corpus-pretrained params" in out and "ICT-pretraining" not in out

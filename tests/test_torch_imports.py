@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: it never reaches jax, flax or the JAX
 package, nor pandas, click or tiktoken, which the card's machine may lack
-(a search, a question answered through the QA layer and a report taken
-through the pipeline's stages with those blocked), and its host copies
-(tokenizer, SearchConfig) equal the originals."""
+(a search, a question answered through the QA layer, a report taken
+through the pipeline's stages, an encoder pretrained and saved, and the
+quality eval's BM25 arm, with those blocked), and its host copies
+(tokenizer, SearchConfig, the timing and profiling helpers) equal the
+originals."""
 
 import dataclasses
 import os
@@ -83,6 +85,25 @@ from rag_challenge_2_tpu_torch.index import load_index
 pidx, pmeta = load_index(pipe.paths.index_path, device="cpu")
 assert pmeta.docs[0].company == "金盘科技" and pmeta.docs[0].year == 2024
 assert pidx.n_chunks >= 2, pidx.n_chunks
+# training: a narrow encoder pretrained two steps, saved and loaded; the
+# quality eval's BM25 arm; the timing and profiling helpers
+from rag_challenge_2_tpu_torch.eval.encoder_quality import build_dataset, eval_bm25
+from rag_challenge_2_tpu_torch.models import (
+    EncoderConfig, PretrainConfig, load_params, pretrain_encoder, save_params)
+from rag_challenge_2_tpu_torch.utils.profiling import annotate, device_trace
+from rag_challenge_2_tpu_torch.utils.timing import StageTimer, timed
+timer = StageTimer()
+with device_trace(root / "trace", "pretrain"), timer.stage("pretrain"):
+    model, info = pretrain_encoder(
+        [t for t in meta.chunk_texts if len(t) >= 8] * 4,
+        enc_cfg=EncoderConfig(vocab_bits=10, d_model=32, n_layers=1, n_heads=2,
+                              d_ff=64, max_len=32, out_dim=16),
+        pre_cfg=PretrainConfig(steps=2, batch_size=4, min_span=4), device="cpu")
+assert len(info["history"]) == 2 and timer.as_dict()["pretrain"] > 0
+assert (root / "trace" / "pretrain.json").exists()
+save_params(model, root / "enc.npz")
+assert load_params(model, root / "enc.npz").embed(["营业收入"]).shape == (1, 16)
+assert eval_bm25(build_dataset(n_eval=10), device="cpu")["hit@10"] > 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not bad, bad
@@ -156,3 +177,51 @@ def test_native_query_ids_match_python_path():
         ids = tt.token_ids(text, 16)[:64]
         assert out[i, : len(ids)].tolist() == ids
         assert (out[i, len(ids):] == -1).all()
+
+
+def test_timing_and_profiling_names_match_reference(tmp_path):
+    """The JAX package's ``utils/timing`` and ``utils/profiling`` names
+    exist in the port with the same signatures; ``block_on`` waits for a
+    tensor's device (nothing to wait for on the CPU) and ``device_trace``
+    writes a Chrome trace holding the named regions."""
+    import inspect
+    import json
+
+    import torch
+
+    from rag_challenge_2_tpu.utils import profiling as jp, timing as jt
+    from rag_challenge_2_tpu_torch.utils import profiling as tp, timing as tt
+
+    for jmod, tmod, names in ((jt, tt, ("StageTimer", "timed")),
+                              (jp, tp, ("device_trace", "annotate"))):
+        for name in names:
+            a, b = getattr(tmod, name), getattr(jmod, name)
+            if inspect.isclass(b):
+                assert [m for m in vars(b) if not m.startswith("__")] == \
+                    [m for m in vars(a) if not m.startswith("__")], name
+                for m in ("stage", "record", "as_dict"):
+                    assert inspect.signature(getattr(a, m)) == \
+                        inspect.signature(getattr(b, m)), (name, m)
+            else:
+                assert inspect.signature(a) == inspect.signature(b), name
+
+    timer = tt.StageTimer()
+    x = torch.ones(4)
+    for _ in range(2):
+        with timer.stage("a", block_on=[x, {"y": x}]):
+            x = x * 2
+    timer.record("b", 0.5)
+    assert set(timer.as_dict()) == {"a", "b"} and timer.as_dict()["b"] == 0.5
+    out = {}
+    with tt.timed(out, "t", block_on=x):
+        pass
+    with tt.timed(None, "ignored"):
+        pass
+    assert list(out) == ["t"] and out["t"] >= 0.0
+
+    with tp.device_trace(tmp_path, "outer"):
+        with tp.annotate("inner"):
+            torch.ones(8).sum()
+    names = {e.get("name") for e in json.loads(
+        (tmp_path / "outer.json").read_text())["traceEvents"]}
+    assert {"outer", "inner"} <= names

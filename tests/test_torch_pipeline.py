@@ -8,8 +8,9 @@ LLM's seat, gives equal artifacts: parsed, merged and chunked reports byte
 for byte, the index npz bitwise (CSR and embedding rows), and the answers
 files equal once the wall-clock timings are taken out.  The presets run are
 ``offline`` with BM25 (the served hybrid path) and the ``scale10m`` flags
-(int8 store, IVF probes over the cluster-ordered store).  Where the JAX
-package pretrains an encoder on the corpus, the port raises."""
+(int8 store, IVF probes over the cluster-ordered store).  Without saved
+encoder params the pipeline pretrains an encoder on the corpus, as the
+JAX package does, and saves it in the JAX package's layout."""
 
 import dataclasses
 import json
@@ -114,27 +115,75 @@ def test_pipeline_stages_match_jax(tmp_path, preset):
     assert proc.config.use_bm25 and proc.config.scan_rt == PRESETS[preset].get("scan_rt")
 
 
-def test_create_vector_dbs_without_params_raises(tmp_path, monkeypatch):
-    """Where the JAX package would pretrain an encoder on the corpus, the
-    port stops: it cannot pretrain yet, and random weights would index
-    silently.  ``RAGTPU_AUTO_PRETRAIN=0`` and a given embedder both pass."""
-    from rag_challenge_2_tpu_torch.eval.e2e import run_e2e
-
+def _chunked_root(tmp_path):
     root = tmp_path / "set"
     shutil.copytree("data/test_set", root)
-    monkeypatch.delenv("RAGTPU_AUTO_PRETRAIN", raising=False)
     pipe = TP.Pipeline(root, dataclasses.replace(TP.configs["offline"]), device="cpu")
     pipe.parse_pdf_reports()
     pipe.merge_reports()
     pipe.chunk_reports()
-    with pytest.raises(RuntimeError, match="RAGTPU_AUTO_PRETRAIN=0.*random"):
-        pipe.create_vector_dbs()
-    assert not pipe.paths.index_path.exists()
-    with pytest.raises(RuntimeError, match="not ported"):
-        run_e2e(tmp_path / "e2e", pretrain_steps=5, device="cpu")
+    return root, pipe
+
+
+def test_create_vector_dbs_without_params_pretrains(tmp_path, monkeypatch, capsys):
+    """With no embedder and no saved params, ``create_vector_dbs``
+    pretrains the full-width encoder on the corpus on the pipeline's
+    device (2 steps here), saves ``encoder_params.npz`` in the reference's
+    layout (the JAX package's ``load_params`` reads it and embeds as the
+    port does) and indexes with those weights."""
+    import numpy as np
+    import torch
+
+    from rag_challenge_2_tpu.models.encoder import EmbeddingModel as JaxModel
+    from rag_challenge_2_tpu.models.pretrain import load_params as jax_load
+    from rag_challenge_2_tpu_torch.index import load_index
+
+    root, pipe = _chunked_root(tmp_path)
+    monkeypatch.delenv("RAGTPU_AUTO_PRETRAIN", raising=False)
+    monkeypatch.setenv("RAGTPU_AUTO_PRETRAIN_STEPS", "2")
+    params = pipe.paths.databases_path / "encoder_params.npz"
+    pipe.create_vector_dbs()
+    out = capsys.readouterr().out
+    assert "ICT-pretraining 2 steps" in out and "loaded corpus-pretrained params" in out
+    assert params.exists() and pipe.paths.index_path.exists()
+    model = pipe.embedder.__self__
+    jm = jax_load(JaxModel(), params)
+    texts = ["金盘科技2024年营业收入", "研发费用"]
+    a, b = model.embed(texts), np.asarray(jm.embed(texts))
+    assert (a * b).sum(1).min() >= 0.999
+    # the index holds the trained encoder's embeddings of the chunks
+    idx, meta = load_index(pipe.paths.index_path, device="cpu")
+    np.testing.assert_allclose(idx.emb[:2].numpy(), model.embed(meta.chunk_texts[:2]),
+                               rtol=0, atol=1e-6)
+    assert not torch.equal(model.module.tok_embed, torch.zeros_like(model.module.tok_embed))
+
+
+def test_create_vector_dbs_skips_pretraining_when_asked(tmp_path, monkeypatch, capsys):
+    """``RAGTPU_AUTO_PRETRAIN=0`` indexes with the seeded random weights and
+    saves no params; a given embedder never pretrains."""
+    root, pipe = _chunked_root(tmp_path)
+    monkeypatch.setenv("RAGTPU_AUTO_PRETRAIN", "0")
+    pipe.create_vector_dbs()
+    params = pipe.paths.databases_path / "encoder_params.npz"
+    assert pipe.paths.index_path.exists() and not params.exists()
+    assert "randomly initialized weights" in capsys.readouterr().out
+    monkeypatch.delenv("RAGTPU_AUTO_PRETRAIN")
+    pipe.paths.index_path.unlink()
     TP.Pipeline(root, dataclasses.replace(TP.configs["offline"]),
                 embedder=hashed_embedder(), device="cpu").create_vector_dbs()
-    assert pipe.paths.index_path.exists()
+    assert pipe.paths.index_path.exists() and not params.exists()
+
+
+def test_run_e2e_pretrains_on_the_fixture(tmp_path):
+    """``run_e2e(pretrain_steps=5)``: the encoder (max_len 128) pretrains on
+    the fixture's lines (table pages included) before the pipeline runs."""
+    from rag_challenge_2_tpu_torch.eval.e2e import fixture_lines, run_e2e
+
+    lines = fixture_lines()
+    assert lines and all(len(ln) >= 8 for ln in lines)
+    res = run_e2e(tmp_path / "e2e", pretrain_steps=5, device="cpu")
+    assert res["n"] == 17 and len(res["per_question"]) == 17
+    assert 0.0 <= res["value_accuracy"] <= 1.0 and 0.0 <= res["page_hit"] <= 1.0
 
 
 def test_pipeline_runs_on_the_card_unless_told(tmp_path, monkeypatch):

@@ -138,7 +138,24 @@ without printing a result:
     (e) ``train-encoder`` → ``process-reports`` (params loaded) → ``query``
     and ``eval-encoder`` through the CLI in subprocesses.  Each kernel's
     first call on these paths is held against its plain version.
-11. the last line: ``{"ok": true, "device": {...}}``.
+11. the sharded serving path (BASELINE config 5's multi-shard form; right
+    after phase 6, whose 10M store and results it takes): (a) an NCCL world
+    of one rank, ``sharded_dense_topk`` and the 1 x 1 two-level merge on
+    the deployment store against ``dense_topk``, and what NCCL says to two
+    ranks on the one card; then one gloo world of 4 ranks, all on cuda:0,
+    handed the stores through CUDA IPC: (b) the 10M x 1024 int8 scan of
+    127 queries flat over 4 ranks and two-level over 2 x 2, bitwise equal
+    to the single-device K3 on every rank, recall@10 and ms a call; (c) an
+    IVF of 1,024 lists per shard over phase 5's 1M store (rebuilt from its
+    seed): build seconds by rank, recall@10 at nprobe 2 / 4 / 8, the exact
+    rows at nprobe = K; (d) ``QueryEngine(hier=...)`` with a row-sharded
+    deployment store, a ``ShardedSparseIndex`` and a ``ShardedIVF`` over
+    phase 3's 16 requests (dense, + BM25, + the IVF arm at nprobe = K)
+    against the single-device card engine, K1-K4 launches a request by
+    rank; (e) phase 6c's 10M int8 hybrid through the sharded engine against
+    6c's candidates, ms a request.  Four ranks share one card there: the
+    times show that the merge is right, not that it scales.
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Weights are random from ``--seed`` unless a
 ``save_params`` npz is given.
@@ -1953,6 +1970,9 @@ def phase6c_engine(dev, gen, ctx3, data):
         "emb_scale slice, small regime) bitwise equal to plain; dense_topk == K3")
     out["hybrid_10m_profile"] = profile_hybrid10m(
         dev, idx, hreqs, dataclasses.replace(c, scan_rt=None), per_doc, data)
+    # what phase 11e drives through the sharded engine and holds against
+    data["hybrid"] = dict(idx=idx, hreqs=hreqs, cfg=dataclasses.replace(c, scan_rt=None),
+                          window=per_doc, fused=[f.to("cpu") for f in fused_of[None]])
     overlap = []
     for a, b in zip(fused_of[None], fused_of[0.95]):
         ka = set(a.key.tolist()) - {-1}
@@ -1987,7 +2007,8 @@ def phase6_scan10m(dev, seed, ctx3, ctx5):
     p6c = phase6c_engine(dev, gen, ctx3, data)
     log(f"phase 6 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    return dict(k3_1m=k3_1m, k3_10m=k3_10m, scans=p6b, engine=p6c)
+    # phase 11 takes the 10M store, its oracle and 6c's hybrid from here
+    return dict(k3_1m=k3_1m, k3_10m=k3_10m, scans=p6b, engine=p6c), data
 
 
 # --------------------------------------------------------------- phase 7
@@ -4209,6 +4230,448 @@ def phase10_training(dev, seed, work, ctx9):
 
 # ------------------------------------------------------------------- main
 
+# --------------------------------------------------------------- phase 11
+
+P11_GRID = ("slice", "device")
+P11_IVF_LISTS = 1024        # 11c's lists a shard
+P11_ONE_CARD = ("four ranks share one card: these times show that the merge is "
+                "right, not that it scales")
+
+
+def _every(x):
+    """Every rank's ``x``, in rank order (a gloo all-gather of objects)."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, x)
+    return out
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_ms(dev, fn, reps):
+    """``(fn(), ms a call)`` on a rank: one warm-up call, then ``reps``
+    calls between two barriers, the card synchronised (every rank's
+    time is the world's)."""
+    import torch.distributed as dist
+
+    fn()
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    _sync(dev)
+    dist.barrier()
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def rank11a_nccl(dev, q, emb):
+    """11a in the one rank of an NCCL world: the flat and the 1 x 1
+    two-level merge against ``dense_topk`` on the deployment store."""
+    import torch
+    import torch.distributed as dist
+
+    from rag_challenge_2_tpu_torch.ops.topk import dense_topk
+    from rag_challenge_2_tpu_torch.parallel import (
+        hierarchical_dense_topk, make_mesh, sharded_dense_topk)
+
+    flat = make_mesh({"data": 1}, "nccl", "cuda")
+    hier = make_mesh({"slice": 1, "device": 1}, "nccl", "cuda")
+    zero_counts()
+    sv, si = sharded_dense_topk(q, emb, 30, flat)
+    hv, hi = hierarchical_dense_topk(q, emb, 30, hier)
+    launches = read_counts()
+    xv, xi = dense_topk(q, emb, 30)
+    return dict(dev=str(dev), backend=dist.get_backend(), launches=launches,
+                same=bool(torch.equal(si, xi) and torch.equal(hi, xi)
+                          and torch.equal(sv, xv) and torch.equal(hv, xv)))
+
+
+def nccl_two_ranks_one_card(rank, init, out):
+    """Two NCCL ranks on cuda:0: what NCCL says (a check, recorded)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=init, world_size=2, rank=rank,
+                                timeout=timedelta(seconds=60))
+        x = torch.ones(4, device="cuda:0")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out.put((rank, "all_reduce ran"))
+    except Exception as e:                  # recorded, the check's answer
+        out.put((rank, f"{type(e).__name__}: {str(e).splitlines()[-1][:200]}"))
+
+
+def phase11a_nccl(dev, ctx3):
+    import os
+    import tempfile
+
+    import torch
+
+    from rag_challenge_2_tpu_torch.parallel import run_ranks
+
+    emb = ctx3["eng"].index.emb
+    q = ctx3["requests"][0][3]
+    r, t = wall(lambda: run_ranks(rank11a_nccl, 1, "nccl", "cuda", (q, emb),
+                                  timeout=300), dev)
+    log(f"11a backend nccl, world 1, rank devices [{r['dev']}]")
+    check(r["same"], "11a: the NCCL sharded / two-level top-k differs from dense_topk")
+    check(r["launches"]["dense_topk"] == 2, f"11a: K1 launches {r['launches']}")
+    log(f"11a: sharded_dense_topk and hierarchical_dense_topk (1 x 1) over NCCL on the "
+        f"deployment store ({emb.shape[0]} x {emb.shape[1]}, B = {q.shape[0]}, k = 30) "
+        f"== dense_topk bitwise; K1 launches {r['launches']['dense_topk']}; world "
+        f"started, ran and ended in {t:.1f} s")
+    # NCCL with two ranks on the one card (run_ranks refuses it before it starts)
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="rc2_nccl2_")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=nccl_two_ranks_one_card, daemon=True,
+                         args=(i, "file://" + os.path.join(tmp, "s"), out))
+             for i in range(2)]
+    for p in procs:
+        p.start()
+    said, t0 = {}, time.monotonic()
+    while len(said) < 2 and time.monotonic() - t0 < 60:
+        try:
+            rank, msg = out.get(timeout=1.0)
+            said[rank] = msg
+        except Exception:                   # queue.Empty: keep waiting
+            pass
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(5)
+    log(f"11a: nccl with 2 ranks on one card: {said or 'no answer in 60 s'}")
+    return dict(nccl_world1_s=t, nccl_two_ranks_one_card=said)
+
+
+def rank11b_scan(dev, d):
+    """11b on a rank: config 5's 10M int8 scan, flat over 4 ranks and
+    two-level over 2 x 2; each rank's merged result against the
+    single-device K3's."""
+    import torch
+
+    from rag_challenge_2_tpu_torch.parallel import (
+        make_hierarchical_topk, make_mesh, make_sharded_topk)
+    from rag_challenge_2_tpu_torch.parallel.sharded_search import shard_rows, shard_vec
+
+    flat = make_mesh({"data": 4}, "gloo")
+    el, sl = shard_rows(d["buf"], flat), shard_vec(d["scales"], flat)
+    out = {}
+    for name, fn in (("flat", make_sharded_topk(flat, 30, "data", int8=True)),
+                     ("hier", make_hierarchical_topk(make_mesh({"slice": 2, "device": 2}),
+                                                     30, int8=True))):
+        zero_counts()
+        (v, i), ms = _rank_ms(dev, lambda: fn(d["q"], el, None, sl), 3)
+        same = torch.equal(v, d["ref_v"]) and torch.equal(i.long(), d["ref_i"].long())
+        out[name] = dict(ms=ms, rows=i.cpu().numpy(), every=_every(dict(
+            dev=str(dev), rows=el.shape[0], same=bool(same),
+            k3=read_counts()["stream_topk"])))
+    return out
+
+
+def rank11c_ivf(dev, d):
+    """11c on a rank: its IVF over its 250,000 rows of the 1M store (1,024
+    lists), then the sharded probe search at each nprobe."""
+    import torch
+
+    from rag_challenge_2_tpu_torch.parallel import make_mesh
+    from rag_challenge_2_tpu_torch.parallel.sharded_ivf import (
+        build_sharded_ivf, sharded_ivf_search)
+
+    flat = make_mesh({"data": 4}, "gloo")
+    _sync(dev)
+    t0 = time.perf_counter()
+    sivf = build_sharded_ivf(d["emb"], flat, n_clusters=d["K"], iters=10, seed=0)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    zero_counts()
+    found = {}
+    for nprobe in d["nprobes"]:
+        # every list probed holds [G, max_list] spans of 32 queries at a time
+        step = 32 if nprobe == sivf.k_clusters else d["q"].shape[0]
+
+        def search(nprobe=nprobe, step=step):
+            parts = [sharded_ivf_search(sivf, d["q"][s:s + step], 10, nprobe=nprobe)
+                     for s in range(0, d["q"].shape[0], step)]
+            return torch.cat([v for v, _ in parts]), torch.cat([r for _, r in parts])
+
+        (v, r), ms = _rank_ms(dev, search, 1)
+        found[nprobe] = (v.cpu().numpy(), r.cpu().numpy(), ms)
+    return dict(found=found, k_clusters=sivf.k_clusters, max_list=sivf.max_list,
+                every=_every(dict(dev=str(dev), build_s=build_s,
+                                  n_pad=sivf.local.emb_perm.shape[0],
+                                  launches=read_counts())))
+
+
+def rank11d_engine(dev, d):
+    """11d on a rank: QueryEngine(hier=...) on the deployment, its rows,
+    its BM25 shard and its IVF shard; 16 requests a configuration."""
+    import dataclasses
+
+    from rag_challenge_2_tpu_torch.parallel import make_mesh
+    from rag_challenge_2_tpu_torch.parallel.sharded_ivf import build_sharded_ivf
+    from rag_challenge_2_tpu_torch.parallel.sharded_search import shard_rows
+    from rag_challenge_2_tpu_torch.parallel.sharded_sparse import shard_sparse_index
+    from rag_challenge_2_tpu_torch.retrieval import QueryEngine
+
+    mesh = make_mesh(dict(zip(P11_GRID, (2, 2))), "gloo")
+    idx = d["idx"]
+    mine = dataclasses.replace(idx, emb=shard_rows(idx.emb, mesh, P11_GRID),
+                               sparse=shard_sparse_index(idx.sparse, 4, mesh, P11_GRID))
+    _sync(dev)
+    t0 = time.perf_counter()
+    sivf = build_sharded_ivf(idx.emb, mesh, n_clusters=d["K"], valid=idx.valid,
+                             axis=P11_GRID)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    eng = QueryEngine(mine, d["meta"], ivf=sivf, hier=(mesh, *P11_GRID))
+    out = dict(build_s=build_s, window=eng.window)
+    for name, cfg in d["cfgs"].items():
+        def run(cfg=cfg):
+            return [eng.search(qe, COMPANY, question, years, cfg, query_texts=qtexts)
+                    for question, qtexts, years, qe in d["requests"]]
+
+        zero_counts()
+        cands, ms = _rank_ms(dev, run, 1)
+        n = 2 * len(d["requests"])                      # warm-up + timed
+        out[name] = dict(
+            cands=[c.to("cpu") for c in cands], ms=ms / len(d["requests"]),
+            materialized=eng.materialize(cands[0], cfg),
+            every=_every(dict(dev=str(dev), rows=mine.emb.shape[0], launches={
+                k: v / n for k, v in read_counts().items()})))
+    return out
+
+
+def rank11e_hybrid(dev, d):
+    """11e on a rank: phase 6c's 10M int8 hybrid through search_device with
+    the dense arm via hier and BM25 via this rank's CSR shard."""
+    import dataclasses
+
+    from rag_challenge_2_tpu_torch.parallel import make_mesh
+    from rag_challenge_2_tpu_torch.parallel.sharded_search import shard_rows, shard_vec
+    from rag_challenge_2_tpu_torch.parallel.sharded_sparse import take_shard
+    from rag_challenge_2_tpu_torch.retrieval import search_device
+
+    mesh = make_mesh(dict(zip(P11_GRID, (2, 2))), "gloo")
+    idx = d["idx"]
+    mine = dataclasses.replace(
+        idx, emb=shard_rows(idx.emb, mesh, P11_GRID),
+        emb_scale=shard_vec(idx.emb_scale, mesh, P11_GRID),
+        sparse=take_shard(d["sparse"], mesh, P11_GRID))
+    hier = (mesh, *P11_GRID)
+
+    def run():
+        return [search_device(mine, rq, d["cfg"], window=d["window"], hier=hier)[0]
+                for rq in d["hreqs"]]
+
+    zero_counts()
+    fused, ms = _rank_ms(dev, run, 1)
+    n = 2 * len(d["hreqs"])
+    return dict(fused=[f.to("cpu") for f in fused], ms=ms / len(d["hreqs"]),
+                every=_every(dict(dev=str(dev), rows=mine.emb.shape[0], launches={
+                    k: v / n for k, v in read_counts().items()})))
+
+
+def rank11_world(dev, b):
+    """The rank program of phase 11b-e: one gloo world of 4 ranks on the
+    card runs the four sub-phases in turn."""
+    return dict(scan=rank11b_scan(dev, b["scan"]), ivf=rank11c_ivf(dev, b["ivf"]),
+                engine=rank11d_engine(dev, b["engine"]),
+                hybrid=rank11e_hybrid(dev, b["hybrid"]))
+
+
+def _devices(every):
+    return "[" + ", ".join(e["dev"] for e in every) + "]"
+
+
+def phase11_sharded(dev, seed, ctx3, ctx6, p6):
+    """Phase 11: the sharded serving path (the JAX package's config-5 form)
+    on the card.  11a: an NCCL world of one rank.  11b-e: one gloo world of
+    4 ranks, all on cuda:0, handed the stores through CUDA IPC: config 5's
+    10M int8 scan flat and two-level, the sharded IVF at 1M, the engine's
+    hier / ShardedSparseIndex / ShardedIVF branches on the deployment, and
+    the 10M hybrid end to end, each held against the single-device path."""
+    import numpy as np
+    import torch
+
+    from rag_challenge_2_tpu_torch.ops.dense_topk import dense_topk_fused
+    from rag_challenge_2_tpu_torch.ops.topk import dense_topk
+    from rag_challenge_2_tpu_torch.parallel import run_ranks
+    from rag_challenge_2_tpu_torch.parallel.sharded_sparse import shard_sparse_index
+    from rag_challenge_2_tpu_torch.retrieval import SearchConfig
+
+    log("== phase 11: the sharded serving path (BASELINE config 5's multi-shard form)")
+    t_phase = time.perf_counter()
+    out = phase11a_nccl(dev, ctx3)
+
+    # 11b: the single-device K3 on the 10M int8 store, the reference
+    data = ctx6
+    q10 = data["q"]
+    ref_v, ref_i = dense_topk(q10, data["buf"], 30, row_scale=data["scales"])
+    ref_ms = statistics.median(
+        wall(lambda: dense_topk(q10, data["buf"], 30, row_scale=data["scales"]), dev)[1]
+        for _ in range(3)) * 1e3
+    # 11c: phase 5's 1M f32 store rebuilt from its seed, the exact oracle
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emb1m, q1m = ivf_data(dev, gen, 1_000_000, 1024)
+    blocks = [dense_topk_fused(q1m[s:s + 64].contiguous(), emb1m, 10)
+              for s in range(0, q1m.shape[0], 64)]
+    oracle1m_v = torch.cat([v for v, _ in blocks])
+    oracle1m = torch.cat([i for _, i in blocks]).cpu().numpy()
+    K_SHARD = P11_IVF_LISTS
+    # 11d: the single-device card engine over phase 3's requests
+    eng = ctx3["eng"]
+    reqs = ctx3["requests"]
+    cfgs = {
+        "dense": SearchConfig(method="basic", top_k=30, top_n=30),
+        "bm25": SearchConfig(method="basic", top_k=30, top_n=30, use_bm25=True,
+                             bm25_top_k=30),
+        "bm25_ivf": SearchConfig(method="basic", top_k=30, top_n=30, use_bm25=True,
+                                 bm25_top_k=30, use_ivf=True, ivf_nprobe=32),
+    }
+    single = {name: [eng.search(qe, COMPANY, question, years, c, query_texts=qtexts)
+                     for question, qtexts, years, qe in reqs]
+              for name, c in cfgs.items() if not c.use_ivf}
+    single_mat = eng.materialize(single["bm25"][0], cfgs["bm25"])
+    # 11e: 6c's hybrid and its CSR partitioned on the host, stacked on the card
+    hyb = data["hybrid"]
+    stacked, t_part = wall(lambda: shard_sparse_index(hyb["idx"].sparse, 4), dev)
+    log(f"11e: the 10M CSR ({int(hyb['idx'].sparse.indptr[-1])} postings) partitioned "
+        f"into 4 row-range shards on the host in {t_part:.1f} s "
+        f"(L {stacked.chunk_ids.shape[1]}, max_postings {stacked.max_postings})")
+    bundle = dict(
+        scan=dict(buf=data["buf"], scales=data["scales"], q=q10, ref_v=ref_v, ref_i=ref_i),
+        ivf=dict(emb=emb1m, q=q1m, K=K_SHARD, nprobes=(2, 4, 8, K_SHARD)),
+        engine=dict(idx=eng.index, meta=eng.meta, requests=reqs, cfgs=cfgs, K=32),
+        hybrid=dict(idx=hyb["idx"], sparse=stacked, hreqs=hyb["hreqs"], cfg=hyb["cfg"],
+                    window=hyb["window"]))
+    r, t_world = wall(lambda: run_ranks(rank11_world, 4, "gloo", dev.type, (bundle,),
+                                        timeout=900), dev)
+    del bundle, stacked
+    torch.cuda.empty_cache()
+    log(f"11b-e: one gloo world of 4 ranks on the card started, ran and ended in "
+        f"{t_world:.1f} s")
+
+    # 11b
+    sc = r["scan"]
+    res = {}
+    for name in ("flat", "hier"):
+        every = sc[name]["every"]
+        log(f"11b {name}: backend gloo, world 4 ({'data 4' if name == 'flat' else 'slice 2 x device 2'}), "
+            f"rank devices {_devices(every)}")
+        check(all(e["same"] for e in every),
+              f"11b {name}: a rank's merged result differs from the single-device K3")
+        check(all(e["k3"] == 4 for e in every), f"11b {name}: K3 launches {every}")
+        rec = recall_at(sc[name]["rows"], data["oracle"], 10)
+        res[name] = dict(ms=sc[name]["ms"], recall10=rec)
+        log(f"11b {name}: 10M x 1024 int8, 127 queries, k = 30, {every[0]['rows']} rows a "
+            f"rank: rows and values bitwise equal to the single-device K3 on every rank; "
+            f"recall@10 {rec:.4f} against phase 6's oracle (single device reads the same "
+            f"rows); {sc[name]['ms']:.2f} ms a call against the single-device "
+            f"{ref_ms:.2f} ms (phase 6's K3 kernel {p6['k3_10m']['int8']['ms']:.3f} ms); "
+            f"{P11_ONE_CARD}")
+    out["scan"] = dict(res, single_ms=ref_ms)
+
+    # 11c
+    iv = r["ivf"]
+    every = iv["every"]
+    log(f"11c: backend gloo, world 4 (data 4), rank devices {_devices(every)}")
+    log(f"11c: IVF per shard over {emb1m.shape[0] // 4} rows of the "
+        f"{emb1m.shape[0]} x {emb1m.shape[1]} f32 store: K "
+        f"{iv['k_clusters']}, common max_list {iv['max_list']}, n_pad "
+        f"{every[0]['n_pad']}; build s by rank "
+        + ", ".join("%.2f" % e["build_s"] for e in every))
+    check(all(e["launches"]["probe_scores"] > 0 and e["launches"]["span_gather"] > 0
+              for e in every), f"11c: K4 / K2 did not launch on every rank: {every}")
+    sweep = {}
+    for nprobe, (v, rows, ms) in iv["found"].items():
+        rec = recall_at(rows, oracle1m, 10)
+        sweep[nprobe] = dict(recall10=rec, ms=ms)
+        log(f"11c: nprobe {nprobe} a shard ({4 * nprobe} lists probed): recall@10 "
+            f"{rec:.4f}, {ms:.2f} ms a call of 127 queries")
+    v, rows, _ = iv["found"][K_SHARD]
+    sure = untied(oracle1m_v, 1e-5).cpu().numpy()
+    check((rows[sure] == oracle1m[sure]).all(),
+          "11c: at nprobe = K the rows differ from the exact oracle where untied")
+    check(np.abs(v - oracle1m_v.cpu().numpy()).max() <= 1e-4,
+          "11c: at nprobe = K the values differ from the oracle")
+    log(f"11c: at nprobe = K = {K_SHARD} the rows equal the exact oracle "
+        f"({int(sure.sum())} of {sure.size} untied positions), values within 1e-4")
+    out["ivf"] = dict(sweep=sweep, build_s=[e["build_s"] for e in every],
+                      max_list=iv["max_list"])
+    del emb1m, q1m
+    torch.cuda.empty_cache()
+
+    # 11d
+    en = r["engine"]
+    log(f"11d: the deployment's IVF per shard (K 32, nprobe 32 = every list) built in "
+        f"{en['build_s']:.2f} s; window {en['window']}")
+    res = {}
+    for name, c in cfgs.items():
+        every = en[name]["every"]
+        log(f"11d {name}: backend gloo, world 4 (slice 2 x device 2), rank devices "
+            f"{_devices(every)}, {every[0]['rows']} rows a rank")
+        ref = single["bm25" if c.use_ivf else name]
+        reordered = sum(same_candidates(a, b, 1e-4) for a, b in zip(en[name]["cands"], ref))
+        if name == "bm25":
+            got = en[name]["materialized"]
+            check(len(got) == len(single_mat) and all(
+                abs(a["distance"] - b["distance"]) <= 1e-4 for a, b in zip(got, single_mat)),
+                "11d: materialized results differ from the single-device engine's")
+        per_rank = [e["launches"] for e in every]
+        sums = {k: sum(p[k] for p in per_rank) for k in per_rank[0]}
+        want = ("probe_scores", "span_gather") if c.use_ivf else (
+            ("dense_topk", "span_gather") if c.use_bm25 else ("dense_topk",))
+        check(all(sums[k] > 0 for k in want), f"11d {name}: launches {per_rank}")
+        check(all(sum(p.values()) > 0 for p in per_rank),
+              f"11d {name}: a rank launched no kernel: {per_rank}")
+        res[name] = dict(ms_per_request=en[name]["ms"], launches_per_request=sums,
+                         launches_per_rank=per_rank, reordered_ties=reordered)
+        log(f"11d {name}: 16 requests == the single-device card engine"
+            f"{' (exact path: nprobe = K)' if c.use_ivf else ''} (tie groups reordered: "
+            f"{reordered}); {en[name]['ms']:.2f} ms a request; launches a request by rank "
+            + "; ".join(", ".join(f"{k} {v:g}" for k, v in p.items() if v) for p in per_rank)
+            + f"; {P11_ONE_CARD}")
+    out["engine"] = res
+
+    # 11e
+    hy = r["hybrid"]
+    every = hy["every"]
+    log(f"11e: backend gloo, world 4 (slice 2 x device 2), rank devices "
+        f"{_devices(every)}, {every[0]['rows']} rows a rank")
+    reordered = sum(same_candidates(a, b, 1e-4) for a, b in zip(hy["fused"], hyb["fused"]))
+    per_rank = [e["launches"] for e in every]
+    sums = {k: sum(p[k] for p in per_rank) for k in per_rank[0]}
+    check(sums["stream_topk"] > 0 and all(p["span_gather"] > 0 for p in per_rank),
+          f"11e: K3 / K2 launches {per_rank}")
+    nq = hyb["hreqs"][0].q.shape[0]
+    one = p6["engine"]["hybrid_10m_rtNone"]
+    log(f"11e: the 10M int8 hybrid through the sharded engine (dense via hier, BM25 via "
+        f"ShardedSparseIndex): 16 requests == phase 6c's single-device candidates (tie "
+        f"groups reordered: {reordered}); {hy['ms']:.2f} ms a request = "
+        f"{nq / hy['ms'] * 1e3:.1f} queries/s against 6c's {one['qps']:.1f} queries/s; "
+        f"launches a request by rank "
+        + "; ".join(", ".join(f"{k} {v:g}" for k, v in p.items() if v) for p in per_rank)
+        + f"; {P11_ONE_CARD}")
+    out["hybrid"] = dict(ms_per_request=hy["ms"], qps=nq / hy["ms"] * 1e3,
+                         single_qps=one["qps"], launches_per_request=sums,
+                         launches_per_rank=per_rank, reordered_ties=reordered)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--params", default=None,
@@ -4267,12 +4730,15 @@ def main(argv=None):
     torch.cuda.empty_cache()
     p5, ctx5 = phase5_ivf(dev, args.seed, ctx3)
     torch.cuda.empty_cache()
-    p6 = phase6_scan10m(dev, args.seed, ctx3, ctx5)
+    p6, ctx6 = phase6_scan10m(dev, args.seed, ctx3, ctx5)
     p7["int8_10m"] = p6["engine"]["traversal_10m"]
+    p11 = phase11_sharded(dev, args.seed, ctx3, ctx6, p6)
+    del ctx6
+    torch.cuda.empty_cache()
 
     log("summary " + json.dumps({"phase3": p3, "phase4": p4, "phase5": p5,
                                  "phase6": p6, "phase7": p7, "phase8": p8, "phase9": p9,
-                                 "phase10": p10, "kernels": k}))
+                                 "phase10": p10, "phase11": p11, "kernels": k}))
     qa = p8["launches"]
     hyb = p7["deploy"]["hybrid_expansion+bm25"]["launches_per_request"]
     big = [c for c in k["k1"] if c["N"] == 250_000 and c["dtype"] == "bfloat16"][0]
@@ -4294,6 +4760,11 @@ def main(argv=None):
     p10q = p10["auto_pretrain"]["launches_per_question"]
     p10e2e = p10["auto_pretrain"]["e2e_launches_per_question"]
     p10eval = p10["quality"]["launches"]
+    # phase 11: one request through the sharded engine, summed over its 4
+    # ranks (11d: basic + BM25, and its IVF arm; 11e: the 10M int8 hybrid)
+    p11d = p11["engine"]["bm25"]["launches_per_request"]
+    p11ivf = p11["engine"]["bm25_ivf"]["launches_per_request"]
+    p11e = p11["hybrid"]["launches_per_request"]
 
     kernels_line = {"kernels": [
         {"name": "dense_topk", "route": "cuda",
@@ -4308,6 +4779,7 @@ def main(argv=None):
          "launches_per_pretrained_pipeline_question": p10q["dense_topk"],
          "launches_per_e2e_quality_question": p10e2e["dense_topk"],
          "launches_per_quality_eval": p10eval["dense_topk"],
+         "launches_per_sharded_request": p11d["dense_topk"],
          "max_abs_err": max(k["k1_err"], p7["hops"]["err"], p9err("dense_topk")),
          "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
          "bound_by": big["bound_by"], "library_ms": big["library_ms"]},
@@ -4323,6 +4795,7 @@ def main(argv=None):
          # the device teacher's mining (host_teacher=False)
          "launches_per_training_step": p10["device_teacher"]["k2_per_step"],
          "launches_per_quality_eval": p10eval["span_gather"],
+         "launches_per_sharded_request": p11d["span_gather"],
          "max_abs_err": 0.0,
          # the deployment's BM25 calls (phase 3): G = 8 x 64, W = max_postings
          "shape": f"G={p3['k2']['G']} W={p3['k2']['W']} arrays={p3['k2']['arrays']}",
@@ -4334,6 +4807,7 @@ def main(argv=None):
          "replaces": "rag_challenge_2_tpu/ops/pallas_ivf.py:102",
          "launches": p5["engine"]["win_start"]["launches"]["probe_scores"],
          "launches_per_pipeline_question": p9q["probe_scores"],
+         "launches_per_sharded_request": p11ivf["probe_scores"],
          "max_abs_err": max(p5["kernels"]["k4_err"], p9err("probe_scores")),
          "ms": p5["kernels"]["float32"]["ms"],
          "plain_ms": p5["kernels"]["float32"]["plain_ms"],
@@ -4348,6 +4822,7 @@ def main(argv=None):
          + p6["engine"]["hybrid_10m_rtNone"]["launches"]["stream_topk"],
          # phase 9b's int8 preset
          "launches_per_pipeline_question": p9q["stream_topk"],
+         "launches_per_sharded_request": p11e["stream_topk"],
          "max_abs_err": max(p6["k3_1m"]["err"], p9err("stream_topk")),
          "ms": p6["k3_10m"]["int8"]["ms"], "plain_ms": p6["k3_10m"]["int8"]["plain_ms"],
          "bound_ms": p6["k3_10m"]["int8"]["bound_ms"],
@@ -4370,6 +4845,9 @@ def main(argv=None):
                                         if short == "f32" else None),
          # phase 10d: eval_hybrid's 200 stacked queries on an f32 store
          "launches_per_quality_eval": (p10eval["stream_topk"] if short == "f32" else None),
+         # 11d's f32 deployment store (8 queries a slot: K1, so 0); no bf16
+         # store is on the sharded path
+         "launches_per_sharded_request": (p11d["stream_topk"] if short == "f32" else None),
          "max_abs_err": max(p6["k3_1m"][long]["err"], p7["hops"]["err"],
                             p6["engine"][f"search_many_{long}"]["slot_err"]),
          "ms": p6["k3_1m"][long]["ms"], "plain_ms": p6["k3_1m"][long]["plain_ms"],

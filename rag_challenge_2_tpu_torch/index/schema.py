@@ -30,7 +30,7 @@ def _move(obj, device):
     kw = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        if isinstance(v, (torch.Tensor, SparseIndex)):
+        if isinstance(v, (torch.Tensor, SparseIndex, ShardedSparseIndex)):
             v = v.to(device)
         kw[f.name] = v
     return type(obj)(**kw)
@@ -62,6 +62,38 @@ class SparseIndex:
 
 
 @dataclasses.dataclass
+class ShardedSparseIndex:
+    """Row-range-sharded BM25 index: one CSR per dense shard
+    (``parallel/sharded_sparse.py``).
+
+    Postings are partitioned by chunk row range, so every row's postings
+    live on the shard that holds its dense rows and per-shard totals are
+    complete.  The leading axis stacks the CSRs this process holds: all S
+    of them when ``mesh`` is None (the JAX package's one-device stacked
+    form), else the one of this rank's shard (its index over ``axis`` of
+    ``mesh``), whose candidates merge over that axis.  Global statistics
+    (``df``, ``chunk_len``, ``avgdl``) are replicated, so scores equal the
+    unsharded kernel's.
+    """
+
+    indptr: torch.Tensor      # i32 [S_held, V + 1]
+    chunk_ids: torch.Tensor   # i32 [S_held, L] GLOBAL corpus rows, zero-padded
+    tf: torch.Tensor          # f32 [S_held, L]
+    df: torch.Tensor          # f32 [V]       (global, replicated)
+    chunk_len: torch.Tensor   # f32 [N_pad]   (global, replicated)
+    avgdl: torch.Tensor       # f32 scalar
+    dl: Optional[torch.Tensor] = None  # f32 [S_held, L] per-posting doc length
+    vocab_bits: int = 20
+    max_postings: int = 0
+    n_shards: int = 1
+    mesh: Optional[object] = None  # DeviceMesh of a rank's one-shard form
+    axis: object = "data"          # mesh axis (or axes) the shards lie on
+
+    def to(self, device) -> "ShardedSparseIndex":
+        return _move(self, device)
+
+
+@dataclasses.dataclass
 class CorpusIndex:
     """The whole searchable corpus as tensors on one device."""
 
@@ -74,7 +106,7 @@ class CorpusIndex:
     page_seg: torch.Tensor    # i32 [N_pad] — global page-segment id (doc, page)
     chunk_in_doc: torch.Tensor  # i32 [N_pad]
     valid: torch.Tensor       # bool [N_pad]
-    sparse: Optional[SparseIndex]
+    sparse: Optional[SparseIndex]  # or a ShardedSparseIndex
     emb_scale: Optional[torch.Tensor] = None  # f32 [N_pad] for an int8 store
     n_chunks: int = 0
     n_pages: int = 0
@@ -83,7 +115,9 @@ class CorpusIndex:
 
     @property
     def n_pad(self) -> int:
-        return self.emb.shape[0]
+        # the row columns: a rank of a row-sharded store holds only its
+        # rows of emb / emb_scale (parallel/sharded_search.shard_rows)
+        return self.valid.shape[0]
 
     @property
     def device(self) -> torch.device:

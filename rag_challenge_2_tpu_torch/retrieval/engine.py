@@ -23,6 +23,13 @@ The traversal methods walk per routed document slot
 so on an f32 / bf16 store every hop is one ``dense_topk`` call (K1 up to
 64 walkers, K3 above).
 
+The sharded form (BASELINE config 5 over a world of ranks, ``parallel/``)
+runs on every rank: ``hier=(mesh, slice_axis, dev_axis)`` with a
+row-sharded store sends the basic dense stage through the two-level
+merge, a ``ShardedSparseIndex`` merges BM25 over its CSR shards, and a
+``ShardedIVF`` probes each rank's own IVF; fusion and materialisation run
+alike on every rank.  Traversal needs every rank's rows and raises there.
+
 Queries are padded to ``max_queries`` and routed documents to
 ``max_docs`` like the reference, so the fused hit lists keep its shapes;
 unrouted slots are skipped on the host (no device round-trip: the engine
@@ -42,9 +49,13 @@ import torch
 
 from ..index.ivf import (IVFIndex, build_ivf, cluster_order_index,
                          ivf_search, quantize_ivf)
-from ..index.schema import CorpusIndex, CorpusMeta
+from ..index.schema import CorpusIndex, CorpusMeta, ShardedSparseIndex
 from ..ops.aggregate import FusedCandidates, fuse_hits
 from ..ops.topk import NEG_INF, dense_topk
+from ..parallel.mesh import axis_index
+from ..parallel.sharded_ivf import ShardedIVF, sharded_ivf_search
+from ..parallel.sharded_search import make_hierarchical_topk
+from ..parallel.sharded_sparse import sharded_bm25_topk
 from .traversal import (CAND_RECORD, TraversalResult, emit_hits, traverse,
                         traverse_windowed)
 
@@ -157,7 +168,12 @@ def dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
         rows[:, m, : r.shape[1]] = r
     vals = torch.where(req.q_valid[:, None, None], vals,
                        torch.full_like(vals, NEG_INF)).reshape(Q * M, k)
-    rows = rows.reshape(Q * M, k)
+    return _basic_block(vals, rows.reshape(Q * M, k), Q, M)
+
+
+def _basic_block(vals: torch.Tensor, rows: torch.Tensor, Q: int, M: int) -> Block:
+    """A ``[Q*M, k]`` dense (or probe) top-k as the basic method's block."""
+    dev = vals.device
     ok = vals > NEG_INF / 2
     sims = torch.where(ok, vals, torch.zeros_like(vals))
     qids = _qid_pair(Q, M, dev)[:, None].expand(rows.shape)
@@ -168,6 +184,40 @@ def dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
 
 def _qid_pair(Q: int, M: int, dev) -> torch.Tensor:
     return torch.arange(Q, dtype=torch.int32, device=dev).repeat_interleave(M)
+
+
+@torch.inference_mode()
+def hier_dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig, hier,
+                    window: int = 0, k: Optional[int] = None) -> Block:
+    """:func:`dense_hits` on a row-sharded store (``hier = (mesh,
+    slice_axis, dev_axis)``): ``index.emb`` / ``emb_scale`` hold only this
+    rank's rows of the padded store (``parallel.shard_rows`` over the
+    flattened (slice, device) grid), every other column is replicated.
+    Each rank scores its rows of each routed slot with the kernels, then
+    the two-level merge (``parallel.make_hierarchical_topk``, pair mode)
+    gives every rank the ``[Q*M, k]`` block of the single-device engine.
+    Called on every rank of the mesh."""
+    mesh, s_ax, d_ax = hier
+    q = req.q
+    Q = q.shape[0]
+    M, N = req.doc_masks.shape
+    k = min(cfg.top_k if k is None else k, N)
+    rps = index.emb.shape[0]
+    int8 = index.emb_scale is not None
+    kern = make_hierarchical_topk(mesh, k, s_ax, d_ax, int8=int8, pair_mask=True)
+    rest = (index.emb_scale,) if int8 else ()
+    if window > 0 and window >= k and M * window <= 2 * N:
+        # windowed corpora: each slot scores its row range within this rank
+        vals, rows = kern(q, index.emb, req.doc_masks, req.q_valid, req.doc_valid,
+                          *rest, win_start=req.win_start, win_len=req.win_len)
+    else:
+        lo = axis_index(mesh, (s_ax, d_ax)) * rps
+        masks = req.doc_masks[:, lo: lo + rps]
+        if masks.shape[1] < rps:                 # the padded tail of the store
+            masks = torch.nn.functional.pad(masks, (0, rps - masks.shape[1]))
+        vals, rows = kern(q, index.emb, masks.contiguous(), req.q_valid,
+                          req.doc_valid, *rest)
+    return _basic_block(vals, rows, Q, M)
 
 
 @torch.inference_mode()
@@ -190,7 +240,20 @@ def ivf_hits(index: CorpusIndex, ivf: IVFIndex, req: Request,
     qv_rep = req.q_valid.repeat_interleave(M)
     dv = torch.as_tensor(req.doc_valid, dtype=torch.bool, device=dev)
     kw = dict(k=cfg.top_k if k is None else k, nprobe=cfg.ivf_nprobe)
-    if req.slot_doc is not None and ivf.cluster_doc is not None:
+    if isinstance(ivf, ShardedIVF):
+        # the distributed probe: contiguous original-row windows only; with
+        # no window layout a mask mode would be needed, and searching the
+        # whole corpus instead would break routing
+        if window <= 0:
+            raise ValueError(
+                "ShardedIVF requires the contiguous doc-window layout "
+                "(index/build) — rebuild the corpus index or route with "
+                "win_start/win_len")
+        ws = torch.as_tensor(req.win_start, dtype=torch.int32, device=dev).repeat(Q)
+        wl = torch.as_tensor(req.win_len, dtype=torch.int32, device=dev).repeat(Q)
+        wl = torch.where(qv_rep & dv.repeat(Q), wl, torch.zeros_like(wl))
+        vals, rows = sharded_ivf_search(ivf, q_pair, win_start=ws, win_len=wl, **kw)
+    elif req.slot_doc is not None and ivf.cluster_doc is not None:
         sd = torch.as_tensor(req.slot_doc, dtype=torch.int32, device=dev).repeat(Q)
         pd = torch.where(qv_rep, sd, torch.full_like(sd, -1))
         vals, rows = ivf_search(ivf, q_pair, pair_doc=pd, pos_doc=index.doc_id,
@@ -204,12 +267,7 @@ def ivf_hits(index: CorpusIndex, ivf: IVFIndex, req: Request,
         pair_mask = (req.doc_masks[None, :, :] & req.q_valid[:, None, None]
                      & dv[None, :, None]).reshape(Q * M, -1)
         vals, rows = ivf_search(ivf, q_pair, mask=pair_mask, **kw)
-    ok = vals > NEG_INF / 2
-    sims = torch.where(ok, vals, torch.zeros_like(vals))
-    qids = _qid_pair(Q, M, dev)[:, None].expand(rows.shape)
-    mids = torch.full(rows.shape, METHOD_IDS["basic"], dtype=torch.int32,
-                      device=dev)
-    return rows, sims, qids, mids, ok
+    return _basic_block(vals, rows, Q, M)
 
 
 @torch.inference_mode()
@@ -224,14 +282,20 @@ def bm25_hits(index: CorpusIndex, req: Request, cfg: SearchConfig,
     M, N = req.doc_masks.shape
     dev = req.q.device
     k_bm = min(cfg.bm25_top_k, N)
-    ws_t = wl_t = None
-    if window > 0:
-        ws_t = torch.as_tensor(req.win_start, dtype=torch.int32, device=dev)
-        wl_t = torch.as_tensor(req.win_len, dtype=torch.int32, device=dev)
-    bv_mqk, brows_mqk, ok_mqk = bm25_topk(
-        index.sparse, req.q_terms, req.doc_masks, k_bm,
-        row_slot=req.row_slot, win_start=ws_t, win_len=wl_t,
-    )
+    if isinstance(index.sparse, ShardedSparseIndex):
+        # CSR shards beside the dense row shards: per-shard top-k + the
+        # all-gather merge (parallel/sharded_sparse.py)
+        bv_mqk, brows_mqk, ok_mqk = sharded_bm25_topk(
+            index.sparse, req.q_terms, req.doc_masks, k_bm, row_slot=req.row_slot)
+    else:
+        ws_t = wl_t = None
+        if window > 0:
+            ws_t = torch.as_tensor(req.win_start, dtype=torch.int32, device=dev)
+            wl_t = torch.as_tensor(req.win_len, dtype=torch.int32, device=dev)
+        bv_mqk, brows_mqk, ok_mqk = bm25_topk(
+            index.sparse, req.q_terms, req.doc_masks, k_bm,
+            row_slot=req.row_slot, win_start=ws_t, win_len=wl_t,
+        )
     # [M, Q, k] → [Q*M, k] with row index q*M + m
     bv = bv_mqk.transpose(0, 1).reshape(Q * M, k_bm)
     brows = brows_mqk.transpose(0, 1).reshape(Q * M, k_bm)
@@ -330,8 +394,7 @@ def run_traverse(index: CorpusIndex, req: Request, cfg: SearchConfig,
 
 
 def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
-          ivf: Optional[IVFIndex], n_requests: int = 1,
-          ) -> Tuple[List[Block], Dict]:
+          ivf, n_requests: int = 1, hier=None) -> Tuple[List[Block], Dict]:
     """Every arm's hit block for one request, or for ``n_requests`` stacked
     ones (each block is then request-major), and the traversal details."""
     if cfg.method not in METHODS:
@@ -339,12 +402,19 @@ def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
     if cfg.use_ivf and ivf is None:
         raise ValueError("SearchConfig.use_ivf requires an IVFIndex "
                          "(QueryEngine.build_ivf() first)")
+    if hier is not None and cfg.method != "basic":
+        raise NotImplementedError(
+            f"method {cfg.method!r} on a row-sharded store (hier=): the walkers "
+            "hop over rows of every rank, and traversal on a row-sharded store "
+            "is not ported yet (ROADMAP A.14f)")
 
     def basic_block(k: int) -> Block:
         # use_ivf only serves the basic block: the anchors' top-1 and the
         # hops stay exact
         if cfg.use_ivf:
             return ivf_hits(index, ivf, req, cfg, window, k)
+        if hier is not None:
+            return hier_dense_hits(index, req, cfg, hier, window, k)
         return dense_hits(index, req, cfg, window, k)
 
     def expansion(anchors_pm: torch.Tensor, mode: str):
@@ -385,24 +455,32 @@ def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
 
 def search_device(
     index: CorpusIndex, req: Request, cfg: SearchConfig, window: int = 0,
-    ivf: Optional[IVFIndex] = None,
+    ivf=None, hier=None,
 ) -> Tuple[FusedCandidates, Dict]:
     """Full fan-out + aggregation for one request on ``index``'s device:
     the method's dense and traversal arms (the basic block through the IVF
-    probe with ``use_ivf``), BM25 hits (with ``use_bm25``), fusion.
+    probe with ``use_ivf``: an ``IVFIndex``, or a ``parallel.ShardedIVF``
+    probed on every rank), BM25 hits (with ``use_bm25``; a
+    ``ShardedSparseIndex`` merges its shards), fusion.
+
+    ``hier = (mesh, slice_axis, dev_axis)``: ``index.emb`` (and
+    ``emb_scale``) hold only this rank's rows, sharded over the flattened
+    (slice, device) grid, and the dense stage of ``method="basic"`` runs
+    the two-level merge (:func:`hier_dense_hits`); called on every rank,
+    each returns the same result.
 
     Returns ``(fused_candidates, details)``.  ``details`` is empty for the
     basic method; for ``ssg`` / ``triangulation`` it holds ``trav`` (a
     :class:`TraversalResult`) and ``trav_qids``, for ``hybrid_expansion``
     ``basic_rows``, ``basic_ok``, ``basic_sims``, ``ssg`` and ``tri``:
     the JAX engine's arrays in its order (see :func:`run_traverse`)."""
-    blocks, details = _arms(index, req, cfg, window, ivf)
+    blocks, details = _arms(index, req, cfg, window, ivf, hier=hier)
     return fuse_blocks(index, blocks, cfg), details
 
 
 def search_many_device(
     index: CorpusIndex, reqs: Sequence[Request], cfg: SearchConfig,
-    window: int = 0, ivf: Optional[IVFIndex] = None,
+    window: int = 0, ivf=None, hier=None,
 ) -> List[FusedCandidates]:
     """R requests that share one route (the routing fields of ``reqs[0]``)
     in one pass.  Their padded queries are stacked ``[R*Q, D]``, so each
@@ -418,7 +496,7 @@ def search_many_device(
         reqs[0], q=torch.cat([r.q for r in reqs]),
         q_valid=torch.cat([r.q_valid for r in reqs]),
         q_terms=None if any(t is None for t in terms) else torch.cat(terms))
-    blocks, _ = _arms(index, big, cfg, window, ivf, n_requests=R)
+    blocks, _ = _arms(index, big, cfg, window, ivf, n_requests=R, hier=hier)
     out = []
     for r in range(R):
         # every block is request-major: request r is its r-th of R slices
@@ -439,19 +517,16 @@ class QueryEngine:
     reference's result-dict shape.
     """
 
-    def __init__(self, index: CorpusIndex, meta: CorpusMeta,
-                 ivf: Optional[IVFIndex] = None, hier=None):
-        if ivf is not None and not isinstance(ivf, IVFIndex):
-            raise NotImplementedError(
-                "ivf must be an IVFIndex; the sharded IVF is not ported yet "
-                "(ROADMAP A.14)")
-        if hier is not None:
-            raise NotImplementedError(
-                "the multi-device merge is not ported yet (ROADMAP A.14)")
+    def __init__(self, index: CorpusIndex, meta: CorpusMeta, ivf=None,
+                 hier=None):
         self.index = index
         self.meta = meta
-        # optional clustered index for SearchConfig(use_ivf=True)
+        # optional clustered index for SearchConfig(use_ivf=True): an
+        # IVFIndex, or a parallel.ShardedIVF (distributed probes)
         self.ivf = ivf
+        # optional (mesh, slice_axis, dev_axis): index.emb holds this rank's
+        # rows and the dense stage runs the two-level merge
+        self.hier = hier
         self.device = index.emb.device
         self._doc_ids_np = index.doc_id.cpu().numpy()
         self._valid_np = index.valid.cpu().numpy()
@@ -503,7 +578,11 @@ class QueryEngine:
         (``kwargs`` go to ``index.ivf.build_ivf``).  An int8 corpus is
         dequantized for clustering (k-means on raw codes would use the
         wrong geometry); ``quantize=True`` then re-quantizes the IVF to
-        int8, otherwise the probe store stays f32."""
+        int8, otherwise the probe store stays f32.  A row-sharded store
+        (``hier``) clusters per shard: ``parallel.build_sharded_ivf``."""
+        if self.hier is not None:
+            raise NotImplementedError("a row-sharded store builds its IVF per "
+                                      "shard: parallel.build_sharded_ivf")
         emb = self.index.emb
         if self.index.emb_scale is not None:
             emb = emb.float() * self.index.emb_scale[:, None]
@@ -650,7 +729,8 @@ class QueryEngine:
         req = self.prepare(query_embs, company, question, selected_years,
                            cfg, query_texts)
         cands, details = search_device(self.index, req, cfg, self.window,
-                                       ivf=self.ivf if cfg.use_ivf else None)
+                                       ivf=self.ivf if cfg.use_ivf else None,
+                                       hier=self.hier)
         return (cands, details) if with_details else cands
 
     def search_many(
@@ -690,7 +770,8 @@ class QueryEngine:
                     vocab_bits=self.index.sparse.vocab_bits)).to(self.device)
             reqs.append(Request(q, qv, dm, dv, q_terms, row_slot, ws, wl, sd))
         return search_many_device(self.index, reqs, cfg, self.window,
-                                  ivf=self.ivf if cfg.use_ivf else None)
+                                  ivf=self.ivf if cfg.use_ivf else None,
+                                  hier=self.hier)
 
     # -- materialisation -------------------------------------------------
     def materialize(

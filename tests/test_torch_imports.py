@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it never reaches jax, flax or the JAX
 package, nor pandas, click or tiktoken, which the card's machine may lack
 (a search, a question answered through the QA layer, a report taken
-through the pipeline's stages, an encoder pretrained and saved, and the
-quality eval's BM25 arm, with those blocked), and its host copies
+through the pipeline's stages, an encoder pretrained and saved, the
+quality eval's BM25 arm, and a two-rank world of the sharded search,
+with those blocked in every process), and its host copies
 (tokenizer, SearchConfig, the timing and profiling helpers) equal the
 originals."""
 
@@ -119,6 +120,52 @@ def test_port_never_imports_jax():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("OK")
+
+
+_BLOCKER = """import sys
+for name in ("jax", "jaxlib", "flax", "rag_challenge_2_tpu"):
+    sys.modules[name] = None          # any import of these now fails
+"""
+
+_NO_JAX_WORLD = r"""
+import sys
+assert sys.modules["jax"] is None     # sitecustomize ran
+from rag_challenge_2_tpu_torch.parallel import launch
+from tests import torch_ranks
+if __name__ == "__main__":
+    every = launch.run_ranks(torch_ranks.no_jax, 2, "gloo", "cpu")
+    for mods, rows, blocked in every:
+        assert mods == [] and blocked == ["flax", "jax", "jaxlib",
+                                          "rag_challenge_2_tpu"], (mods, blocked)
+    assert every[0][1] == every[1][1]
+    print("OK")
+"""
+
+
+def test_rank_programs_never_import_jax(tmp_path):
+    """A two-rank gloo world of the parallel package with jax, flax and the
+    JAX package blocked in the parent AND in each rank: every interpreter
+    of the run starts with the blocker (a ``sitecustomize`` on its path),
+    imports the whole port and runs a sharded search."""
+    (tmp_path / "sitecustomize.py").write_text(_BLOCKER)
+    (tmp_path / "world.py").write_text(_NO_JAX_WORLD)
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, str(tmp_path / "world.py")], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+def test_parallel_names_match_reference():
+    """The JAX package's ``parallel`` names, but those of the parallel
+    train step (ROADMAP A.14e), exist in the port."""
+    import rag_challenge_2_tpu.parallel as jp
+    import rag_challenge_2_tpu_torch.parallel as tp
+
+    later = {"pipeline_forward", "encoder_param_spec", "shard_params"}
+    names = {n for n in vars(jp) if not n.startswith("_")} - later
+    names -= {m for m in names if type(getattr(jp, m)).__name__ == "module"}
+    assert names <= set(vars(tp)), names - set(vars(tp))
 
 
 def test_port_sources_name_no_jax():

@@ -29,15 +29,15 @@ from rag_challenge_2_tpu.ops.quant import quantize_rows as jax_quantize_rows
 from rag_challenge_2_tpu_torch.index import ivf as tivf
 from rag_challenge_2_tpu_torch.index import store as tstore
 from rag_challenge_2_tpu_torch.index.schema import CorpusIndex
-from rag_challenge_2_tpu_torch.ops import kmeans as tkm
 from rag_challenge_2_tpu_torch.ops.probe_scores import (
     ROW_ALIGN, dma_slack_rows, probe_span_scores, probe_span_scores_plain)
 from rag_challenge_2_tpu_torch.ops.quant import quantize_rows
 
-# the JAX package's ``ops`` exports a function named ``kmeans``
+# both packages' ``ops`` export a function named ``kmeans``
 jivf = importlib.import_module("rag_challenge_2_tpu.index.ivf")
 jstore = importlib.import_module("rag_challenge_2_tpu.index.store")
 jkm = importlib.import_module("rag_challenge_2_tpu.ops.kmeans")
+tkm = importlib.import_module("rag_challenge_2_tpu_torch.ops.kmeans")
 
 TOL = 1e-5
 

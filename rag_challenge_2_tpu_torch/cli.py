@@ -6,6 +6,7 @@ defaults, over a data-set root (``<root>/pdf_reports``, ``subset.csv``,
 ``questions.json``; ``pipeline.paths``) and a named preset
 (``pipeline.run.configs``)::
 
+    python -m rag_challenge_2_tpu_torch download-models [--device cuda]
     python -m rag_challenge_2_tpu_torch parse-pdfs [--root data/test_set] \
         [--config base] [--parallel|--sequential] [--chunk-size 2] \
         [--max-workers 10] [--parser auto|docling|builtin]
@@ -27,6 +28,9 @@ Every command that touches tensors takes ``--device`` (``cuda`` by
 default, ``cpu`` for the plain versions).  ``train-encoder`` pretrains
 the encoder on the root's chunked reports (``models/pretrain.py``) and
 saves its weights, by default to ``<root>/databases/encoder_params.npz``;
+``download-models`` downloads nothing (the encoder is local): it builds
+the CUDA kernels into ``build/kernels/`` when the device is the card and
+embeds one text, as ``main.py``'s warms its local models.
 ``process-reports`` embeds with that file when it exists, and without it
 pretrains an encoder first (``RAGTPU_AUTO_PRETRAIN_STEPS``, 300 by
 default; ``RAGTPU_AUTO_PRETRAIN=0`` indexes with the seeded random
@@ -207,6 +211,15 @@ def build_server(args: argparse.Namespace):
 def run_stage(args: argparse.Namespace) -> List[str]:
     """The ``main.py`` stages; returns the lines to print."""
     cmd = args.command
+    if cmd == "download-models":
+        from .models.encoder import EmbeddingModel, EncoderConfig
+
+        if torch.device(args.device).type == "cuda":
+            from .utils.kernels import build_all
+
+            build_all()
+        emb = EmbeddingModel(EncoderConfig(), device=args.device).embed(["warmup 预热"])
+        return [f"encoder ready: dim={emb.shape[1]}"]
     if cmd == "parse-pdfs":
         _pipeline(args).parse_pdf_reports(
             parallel=args.parallel, chunk_size=args.chunk_size,
@@ -286,6 +299,10 @@ def _switch(p: argparse.ArgumentParser, on: str, off: str, dest: str,
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="rag_challenge_2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    s = sub.add_parser("download-models",
+                       help="warm the local models: build the kernels, embed one text")
+    s.add_argument("--device", default="cuda")
 
     s = sub.add_parser("parse-pdfs", help="PDF/TXT reports → parsed-report JSONs")
     _root_options(s, "base")

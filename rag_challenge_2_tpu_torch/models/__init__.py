@@ -1,4 +1,5 @@
 from .encoder import EmbeddingModel, Encoder, EncoderConfig, tokenize_batch
+from .moe import MoEFFN
 from .pretrain import (
     PretrainConfig, contrastive_pairs, ict_pairs, load_params,
     pretrain_encoder, save_params,

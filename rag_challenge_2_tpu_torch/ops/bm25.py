@@ -89,18 +89,27 @@ def bm25_scores(
 ) -> torch.Tensor:
     """``[B, n_rows]`` f32 BM25 scores (0 where no term matches) for
     ``[B, T]`` hashed term ids padded with -1.  ``window`` defaults to the
-    longest posting list (exact)."""
+    longest posting list (exact).
+
+    A row sums its terms' contributions in term order, on every device and
+    every run: one scatter a term.  A term's postings name a row once (the
+    window's tail past them adds zeros), so no two adds of one scatter
+    meet; a single scatter of every term adds by atomics on the card, in
+    an order that changes from run to run, and near-tied rows then trade
+    places."""
     W = _window(sparse, window)
     rows, contrib = _gather_contributions(
         sparse.indptr, sparse.chunk_ids, sparse.tf, sparse.df,
         sparse.chunk_len, sparse.avgdl, query_terms,
         window=W, k1=k1, b=b, dl=sparse.dl,
     )
-    B = query_terms.shape[0]
+    B, T = query_terms.shape
     scores = torch.zeros((B, n_rows), dtype=torch.float32,
                          device=query_terms.device)
-    return scores.scatter_add_(
-        1, rows.reshape(B, -1).long(), contrib.reshape(B, -1))
+    rows = rows.long()
+    for t in range(T):
+        scores.scatter_add_(1, rows[:, t], contrib[:, t])
+    return scores
 
 
 def _stable_argsort(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 from .launch import run_ranks
-from .mesh import cpu_mesh, make_mesh
+from .mesh import cpu_mesh, encoder_param_spec, make_mesh, shard_params
+from .pipeline import pipeline_forward
 from .sharded_ivf import ShardedIVF, build_sharded_ivf, sharded_ivf_search
 from .sharded_search import (
     hierarchical_dense_topk, make_hierarchical_topk, make_sharded_topk,

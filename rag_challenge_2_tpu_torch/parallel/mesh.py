@@ -9,8 +9,12 @@ puts rank r at ``(r // 4, r % 4)``, as JAX lays its devices out.
 ``mesh.get_local_rank(axis)`` is ``jax.lax.axis_index(axis)`` and
 ``mesh.get_group(axis)`` the group a collective over that axis runs in.
 
-The JAX module's tensor-parallel training rules (``encoder_param_spec``,
-``shard_params``) come with the parallel train step (ROADMAP A.14e).
+The training half: :func:`encoder_param_spec` is the reference's
+Megatron split of the encoder's parameters over ``model`` (attention
+heads, the MLP's hidden features, the experts and the embedding features;
+everything else replicated), and :func:`shard_params` keeps this rank's
+shard of each parameter.  GSPMD pads a dimension its axis does not
+divide; here that raises.
 """
 
 from __future__ import annotations
@@ -83,3 +87,67 @@ def axis_index(mesh: DeviceMesh, axis: Axes) -> int:
     for a in axis_names(axis):
         idx = idx * mesh.size(mesh.mesh_dim_names.index(a)) + mesh.get_local_rank(a)
     return idx
+
+
+# ---- encoder parameter sharding rules (tensor parallelism) --------------
+
+def encoder_param_spec(name: str, tensor: torch.Tensor) -> Tuple[Optional[str], ...]:
+    """The mesh axis each dim of an :class:`~..models.encoder.Encoder`
+    parameter splits over (``None``: not split), by its state-dict name:
+    the reference's ``PartitionSpec`` of the matching flax leaf, carried
+    through the port's layout (``nn.Linear.weight`` is ``[out, in]``, the
+    transpose of a flax kernel, with attention's heads flattened).
+
+    Token and position embeddings split their feature dim; attention's
+    query / key / value split their heads (the weight's rows, the bias),
+    its out projection its input (the weight's columns; the bias is
+    replicated); ``mlp_in`` splits its output, ``mlp_out`` its input; the
+    experts' ``[E, ., .]`` kernels split the expert axis; the router, the
+    LayerNorms and the final projection are replicated."""
+    nd = tensor.dim()
+    last = name.rsplit(".", 1)[-1]
+    if nd == 0:
+        return ()
+    if name in ("tok_embed", "pos_embed"):
+        return (None, "model")
+    if ".moe." in name:
+        if ".router." in name:
+            return (None,) * nd
+        return ("model", None, None)
+    for layer, split in ((".query.", "out"), (".key.", "out"), (".value.", "out"),
+                         (".mlp_in.", "out"), (".out.", "in"), (".mlp_out.", "in")):
+        if layer in name:
+            if last == "bias":
+                return ("model",) if split == "out" else (None,)
+            return ("model", None) if split == "out" else (None, "model")
+    return (None,) * nd
+
+
+def shard_params(module: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
+    """Keep this rank's shard of each parameter of ``module`` (an encoder
+    holding the full weights) per :func:`encoder_param_spec`, in place, and
+    give the module the mesh its forward's collectives run over.  An axis
+    the mesh lacks degrades to replication (a ``data x pipe`` mesh has no
+    ``model`` axis); a dimension its axis does not divide raises
+    ``ValueError`` naming the parameter."""
+    names = mesh.mesh_dim_names
+    head = module.cfg.d_model // module.cfg.n_heads
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            part = p.data
+            # attention splits whole heads (the reference's [.., heads, head_dim])
+            unit = head if any(f".{a}." in name for a in ("query", "key", "value", "out")) else 1
+            for dim, axis in enumerate(encoder_param_spec(name, p)):
+                if axis is None or axis not in names:
+                    continue
+                n = mesh.size(names.index(axis))
+                if (part.shape[dim] // unit) % n:
+                    raise ValueError(
+                        f"{name}: dim {dim} of {part.shape[dim] // unit} "
+                        f"{'heads' if unit > 1 else 'elements'} does not divide over "
+                        f"the {n} shards of mesh axis {axis!r}")
+                per = part.shape[dim] // n
+                part = part.narrow(dim, mesh.get_local_rank(axis) * per, per)
+            p.data = part.contiguous()
+    module.mesh = mesh
+    return module

@@ -80,6 +80,27 @@ def test_bm25_scores_match_jax(both):
     assert (t[0] > 0).sum() > 0
 
 
+def test_bm25_scores_sum_each_row_in_term_order(both):
+    """Each row's score is its terms' contributions added one at a time in
+    term order, in f32 (so every device and every run adds alike): equal,
+    bitwise, to that sum taken in numpy from the contributions."""
+    _, tidx, qt = both
+    sp = tidx.sparse
+    q = torch.from_numpy(qt)
+    rows, contrib = tbm._gather_contributions(
+        sp.indptr, sp.chunk_ids, sp.tf, sp.df, sp.chunk_len, sp.avgdl, q,
+        window=max(sp.max_postings, 1), k1=1.5, b=0.75, dl=sp.dl)
+    want = np.zeros((qt.shape[0], tidx.n_pad), np.float32)
+    r, c = rows.numpy(), contrib.numpy()
+    for b in range(qt.shape[0]):
+        for t in range(qt.shape[1]):
+            for w in range(r.shape[2]):
+                want[b, r[b, t, w]] = np.float32(want[b, r[b, t, w]] + c[b, t, w])
+    got = tbm.bm25_scores(sp, q, tidx.n_pad).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).sum() > 0
+
+
 def _routes(idx, docs=(0, 2), M=3):
     doc_id = np.asarray(idx.doc_id)
     valid = np.asarray(idx.valid)

@@ -161,10 +161,11 @@ def test_serve_builds_the_web_app_and_answers(saved_index):
     assert out["timing"]["vector_search"] > 0
 
 
-@pytest.mark.parametrize("command", ["train-encoder", "eval-encoder"])
+@pytest.mark.parametrize("command", ["train-encoder", "eval-encoder", "download-models"])
 def test_training_commands_take_main_py_options(command):
-    """``train-encoder`` and ``eval-encoder`` have ``main.py``'s options with
-    its defaults, plus ``--device`` (the card by default)."""
+    """``train-encoder``, ``eval-encoder`` and ``download-models`` have
+    ``main.py``'s options with its defaults, plus ``--device`` (the card
+    by default)."""
     import main
 
     want = {p.name: p.default for p in main.cli.commands[command].params}
@@ -196,3 +197,17 @@ def test_train_encoder_saves_params_that_process_reports_loads(tmp_path, monkeyp
     cli.main(["process-reports", *common])
     out = capsys.readouterr().out
     assert "loaded corpus-pretrained params" in out and "ICT-pretraining" not in out
+
+
+def test_download_models_embeds_one_text(monkeypatch, capsys):
+    """``download-models --device cpu`` embeds ``main.py``'s warm-up text
+    with the full-width encoder and prints its line; only the card's
+    device builds the kernels."""
+    from rag_challenge_2_tpu_torch.utils import kernels
+
+    def no_build(*a, **k):
+        raise AssertionError("the CPU run builds no kernel")
+
+    monkeypatch.setattr(kernels, "build_all", no_build)
+    cli.main(["download-models", "--device", "cpu"])
+    assert capsys.readouterr().out.strip().splitlines() == ["encoder ready: dim=1024"]

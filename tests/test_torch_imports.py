@@ -131,13 +131,20 @@ _NO_JAX_WORLD = r"""
 import sys
 assert sys.modules["jax"] is None     # sitecustomize ran
 from rag_challenge_2_tpu_torch.parallel import launch
-from tests import torch_ranks
+from tests import torch_ranks, torch_train_ranks
 if __name__ == "__main__":
     every = launch.run_ranks(torch_ranks.no_jax, 2, "gloo", "cpu")
     for mods, rows, blocked in every:
         assert mods == [] and blocked == ["flax", "jax", "jaxlib",
                                           "rag_challenge_2_tpu"], (mods, blocked)
     assert every[0][1] == every[1][1]
+    # the parallel train step's rank programs: a MoE step on data 2
+    cfg = dict(vocab_bits=8, d_model=16, n_layers=2, n_heads=2, d_ff=32, max_len=16,
+               out_dim=8, moe_experts=2)
+    r = launch.run_ranks(torch_train_ranks.init_world, 2, "gloo", "cpu",
+                         (cfg, dict(sequence_parallel=True), {"data": 2}, 0))
+    assert r["every"][0] == r["every"][1]
+    assert torch_ranks.jax_modules() == []
     print("OK")
 """
 
@@ -146,7 +153,8 @@ def test_rank_programs_never_import_jax(tmp_path):
     """A two-rank gloo world of the parallel package with jax, flax and the
     JAX package blocked in the parent AND in each rank: every interpreter
     of the run starts with the blocker (a ``sitecustomize`` on its path),
-    imports the whole port and runs a sharded search."""
+    imports the whole port and runs a sharded search, then a world of the
+    parallel train step's rank programs (a MoE step)."""
     (tmp_path / "sitecustomize.py").write_text(_BLOCKER)
     (tmp_path / "world.py").write_text(_NO_JAX_WORLD)
     env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")
@@ -157,15 +165,28 @@ def test_rank_programs_never_import_jax(tmp_path):
 
 
 def test_parallel_names_match_reference():
-    """The JAX package's ``parallel`` names, but those of the parallel
-    train step (ROADMAP A.14e), exist in the port."""
+    """The JAX package's ``parallel`` names, those of the parallel train
+    step (``pipeline_forward``, ``encoder_param_spec``, ``shard_params``)
+    included, exist in the port."""
     import rag_challenge_2_tpu.parallel as jp
     import rag_challenge_2_tpu_torch.parallel as tp
 
-    later = {"pipeline_forward", "encoder_param_spec", "shard_params"}
-    names = {n for n in vars(jp) if not n.startswith("_")} - later
+    names = {n for n in vars(jp) if not n.startswith("_")}
     names -= {m for m in names if type(getattr(jp, m)).__name__ == "module"}
+    assert {"pipeline_forward", "encoder_param_spec", "shard_params"} <= names
     assert names <= set(vars(tp)), names - set(vars(tp))
+
+
+def test_models_names_match_reference():
+    """The JAX package's ``models`` names, ``MoEFFN`` included, exist in the
+    port."""
+    import rag_challenge_2_tpu.models as jm
+    import rag_challenge_2_tpu_torch.models as tm
+
+    names = {n for n in vars(jm) if not n.startswith("_")}
+    names -= {m for m in names if type(getattr(jm, m)).__name__ == "module"}
+    assert "MoEFFN" in names
+    assert names <= set(vars(tm)), names - set(vars(tm))
 
 
 def test_port_sources_name_no_jax():

@@ -228,8 +228,17 @@ def test_train_config_fields_match_jax():
 
 
 def test_moe_experts_raise_until_multi_gpu():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        Encoder(EncoderConfig(**SMALL, moe_experts=4))
+    """``moe_experts > 0`` no longer raises: the odd blocks take the MoE FFN
+    (``models/moe.py``, held against the reference in
+    ``tests/test_torch_moe.py``), and a step trains it."""
+    from rag_challenge_2_tpu_torch.models import MoEFFN
+
+    module, _, step = init_training(EncoderConfig(**SMALL, moe_experts=4), TrainConfig(),
+                                    "cpu")
+    assert [hasattr(b, "moe") for b in module.blocks] == [False, True]
+    assert isinstance(module.blocks[1].moe, MoEFFN) and not hasattr(module.blocks[1], "mlp_in")
+    m = step(torch.from_numpy(tokens(QUERIES)), torch.from_numpy(tokens(PASSAGES)))
+    assert m["moe_aux"].item() > 0 and module.blocks[1].moe.w_in.grad.abs().sum() > 0
 
 
 @pytest.mark.parametrize("shape_cfg", [

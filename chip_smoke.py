@@ -131,8 +131,9 @@ without printing a result:
     encoder (cos >= 0.99999); ``eval_hybrid_e2e`` with the trained encoder;
     (c) 20 steps with the device teacher (``host_teacher=False``): K2
     launches per step, its scores against ``HostBM25Scorer`` (2e-5); (d)
-    ``run_quality_eval`` (the default recipe at 5,000 steps, the ablation
-    arms at 200, supervised 2,000), every arm beside
+    ``run_quality_eval`` (the default recipe at 5,000 steps, the ungated
+    ablation arms at 100 and the supervised stage at 500: the smoke's time
+    limit), every arm beside
     docs/ENCODER_QUALITY.json, gates: BM25 equal to the CPU's, the default
     recipe's hit@10 >= 0.55 and >= 0.2 above random init; K3 / K2 launches;
     (e) ``train-encoder`` → ``process-reports`` (params loaded) → ``query``
@@ -153,8 +154,14 @@ without printing a result:
     phase 3's 16 requests (dense, + BM25, + the IVF arm at nprobe = K)
     against the single-device card engine, K1-K4 launches a request by
     rank; (e) phase 6c's 10M int8 hybrid through the sharded engine against
-    6c's candidates, ms a request.  Four ranks share one card there: the
-    times show that the merge is right, not that it scales.
+    6c's candidates, ms a request; (f) traversal on the row-sharded stores
+    (every hop a sharded top-k, K1 / K3 on each rank's rows): ``ssg``,
+    ``triangulation`` and ``hybrid_expansion`` with BM25 over the
+    deployment's 16 requests, paths, details and fused candidates against
+    the single-device card engine, K1 / K3 launches by rank exactly as the
+    routed rows each holds ask for, ms a request beside 7b's; and the 10M
+    int8 ``hybrid_expansion`` against 7d's.  Four ranks share one card
+    there: the times show that the merge is right, not that it scales.
 12. the MoE encoder and the parallel train step (right after phase 10, on
     9b's corpus): (a) the full-width encoder with 4 experts (42,757,128
     parameters), card against CPU on 256 of 9b's chunks through
@@ -2010,7 +2017,9 @@ def phase6c_engine(dev, gen, ctx3, data):
         "(scan_rt is computed exactly on the card)")
     check(out["hybrid_10m_overlap"] == 1.0, "scan_rt must not change the results")
     log("== phase 7d: graph traversal on the 10M int8 store")
-    out["traversal_10m"] = phase7d_int8_10m(dev, idx, hreqs, c, per_doc)
+    # phase 11f walks the sharded store for 7d's hybrid_expansion requests
+    out["traversal_10m"], data["hybrid"]["expansion"] = phase7d_int8_10m(
+        dev, idx, hreqs, c, per_doc)
     return out
 
 
@@ -2193,8 +2202,9 @@ def with_given_paths(search, given):
 
     real, own = engine_mod.run_traverse, {}
 
-    def handing_on(index, req, cfg, window, anchors_pm, mode, n_requests=1):
-        res, qids, qv = real(index, req, cfg, window, anchors_pm, mode, n_requests)
+    def handing_on(index, req, cfg, window, anchors_pm, mode, n_requests=1, shard=None):
+        res, qids, qv = real(index, req, cfg, window, anchors_pm, mode, n_requests,
+                             shard=shard)
         own[mode] = res
         return type(res)(*(x.to(res.path.device) for x in given[mode])), qids, qv
 
@@ -2203,6 +2213,12 @@ def with_given_paths(search, given):
         return search(), own
     finally:
         engine_mod.run_traverse = real
+
+
+def on_host(details):
+    """A search's details (TraversalResults and tensors) on the host."""
+    return {k: type(v)(*(x.cpu() for x in v)) if isinstance(v, tuple) else v.cpu()
+            for k, v in details.items()}
 
 
 def paths_by_mode(details, cfg):
@@ -2697,7 +2713,8 @@ def phase7d_int8_10m(dev, idx, hreqs, cfg, per_doc):
     """ssg and hybrid_expansion on the 10M int8 store (Q = 4, 3 of 6 docs
     routed, 1.67M rows a slot): the hops are plain PyTorch in row blocks, so
     no slot is ever whole in f32: the peak over the resident store must
-    stay under 8 GB."""
+    stay under 8 GB.  Returns the summary and hybrid_expansion's
+    ``(fused, details)`` of each request, on the host."""
     import dataclasses
 
     import torch
@@ -2728,11 +2745,13 @@ def phase7d_int8_10m(dev, idx, hreqs, cfg, per_doc):
             check(bool((res.path[:, 1:] >= 0).any()), f"10M int8 {method}: no walker stepped")
         out[method] = dict(ms_per_request=t / 2 * 1e3, peak_gb=peak / 1e9,
                            k3_launches=launches["stream_topk"])
+        if method == "hybrid_expansion":
+            kept = [(f.to("cpu"), on_host(d)) for f, d in got]
         log(f"10M int8 {method}: 2 requests x {c.max_queries} queries, "
             f"{t / 2 * 1e3:.1f} ms/request, peak {peak / 1e9:.2f} GB over the resident "
             f"store (plain hops in blocks; K3 launches {launches['stream_topk']}, all "
             f"in the anchors' / basic block)")
-    return out
+    return out, kept
 
 
 def phase7e_batcher(dev, ctx3):
@@ -4142,10 +4161,11 @@ def phase10c_device_teacher(dev, texts, steps=20):
                 seconds=time.perf_counter() - t0)
 
 
-def phase10d_quality(dev, seed, ict_steps=5000, supervised_steps=2000, ablation_steps=200):
+def phase10d_quality(dev, seed, ict_steps=5000, supervised_steps=500, ablation_steps=100):
     """``run_quality_eval`` on the card: the default recipe at its recorded
-    5,000 steps, the four ablation arms at 200 (the smoke's time limit),
-    the supervised stage at 2,000; every arm beside docs/ENCODER_QUALITY.json; gates: BM25 equals
+    5,000 steps, the four ablation arms at 100 and the supervised stage at
+    500 (neither is gated; the smoke's time limit); every arm beside
+    docs/ENCODER_QUALITY.json; gates: BM25 equals
     the CPU's, the default recipe >= 0.55 hit@10 and >= 0.2 above the
     random encoder; the K3 / K2 launches of ``eval_hybrid``."""
     import rag_challenge_2_tpu_torch.eval.encoder_quality as eq
@@ -4534,28 +4554,233 @@ def rank11e_hybrid(dev, d):
     n = 2 * len(d["hreqs"])
     return dict(fused=[f.to("cpu") for f in fused], ms=ms / len(d["hreqs"]),
                 every=_every(dict(dev=str(dev), rows=mine.emb.shape[0], launches={
-                    k: v / n for k, v in read_counts().items()})))
+                    k: v / n for k, v in read_counts().items()}))), mine
+
+
+def _rank_pass(dev, run):
+    """``(run(), seconds)``: one pass between two barriers, the card
+    synchronised (every rank's time is the world's)."""
+    import torch.distributed as dist
+
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = run()
+    _sync(dev)
+    dist.barrier()
+    return out, time.perf_counter() - t0
+
+
+def _digest(results):
+    """A checksum of ``(fused, details)`` pairs: keys, scores and paths."""
+    import zlib
+
+    crc = 0
+    for fused, details in results:
+        parts = [fused.key, fused.score] + [v.path for v in details.values()
+                                            if isinstance(v, tuple)]
+        for x in parts:
+            crc = zlib.crc32(x.cpu().numpy().tobytes(), crc)
+    return crc
+
+
+def rank11f_traversal(dev, d, mine10m):
+    """11f on a rank: the traversal methods through QueryEngine(hier=...).
+    (a) phase 3's deployment on the 2 x 2 mesh (this rank's rows and BM25
+    shard), 16 requests a method with their details; (b) hybrid_expansion
+    on 11e's rows of the 10M int8 store for phase 7d's requests."""
+    import dataclasses
+
+    from rag_challenge_2_tpu_torch.parallel import make_mesh
+    from rag_challenge_2_tpu_torch.parallel.sharded_search import shard_rows
+    from rag_challenge_2_tpu_torch.parallel.sharded_sparse import shard_sparse_index
+    from rag_challenge_2_tpu_torch.retrieval import QueryEngine, search_device
+
+    t_all = time.perf_counter()
+    mesh = make_mesh(dict(zip(P11_GRID, (2, 2))), "gloo")
+    hier = (mesh, *P11_GRID)
+    a = d["deploy"]
+    idx = a["idx"]
+    mine = dataclasses.replace(idx, emb=shard_rows(idx.emb, mesh, P11_GRID),
+                               sparse=shard_sparse_index(idx.sparse, 4, mesh, P11_GRID))
+    eng = QueryEngine(mine, a["meta"], hier=hier)
+    out = dict(window=eng.window)
+    for name, cfg in a["cfgs"].items():
+        def run(which, cfg=cfg):
+            return [eng.search(qe, COMPANY, question, years, cfg, query_texts=qtexts,
+                               with_details=True)
+                    for question, qtexts, years, qe in which]
+
+        run(a["requests"][:2])                                 # warm-up
+        zero_counts()
+        got, t = _rank_pass(dev, lambda: run(a["requests"]))
+        launches, regimes = read_counts(), k3_regimes()
+        got = [(c.to("cpu"), on_host(det)) for c, det in got]
+        out[name] = dict(got=got, ms=t / len(got) * 1e3, every=_every(dict(
+            dev=str(dev), rows=mine.emb.shape[0], launches=launches, regimes=regimes,
+            digest=_digest(got))))
+    b = d["int8"]
+
+    def run8():
+        return [search_device(mine10m, rq, b["cfg"], window=b["window"], hier=hier)
+                for rq in b["hreqs"]]
+
+    search_device(mine10m, b["hreqs"][0], b["cfg"], window=b["window"], hier=hier)
+    zero_counts()
+    got, t = _rank_pass(dev, run8)
+    launches, regimes = read_counts(), k3_regimes()
+    got = [(c.to("cpu"), on_host(det)) for c, det in got]
+    out["int8_10m"] = dict(got=got, ms=t / len(got) * 1e3, every=_every(dict(
+        dev=str(dev), rows=mine10m.emb.shape[0], launches=launches, regimes=regimes,
+        digest=_digest(got))))
+    out["seconds"] = time.perf_counter() - t_all
+    return out
 
 
 def rank11_world(dev, b):
-    """The rank program of phase 11b-e: one gloo world of 4 ranks on the
-    card runs the four sub-phases in turn."""
-    return dict(scan=rank11b_scan(dev, b["scan"]), ivf=rank11c_ivf(dev, b["ivf"]),
-                engine=rank11d_engine(dev, b["engine"]),
-                hybrid=rank11e_hybrid(dev, b["hybrid"]))
+    """The rank program of phase 11b-f: one gloo world of 4 ranks on the
+    card runs the five sub-phases in turn."""
+    out = dict(scan=rank11b_scan(dev, b["scan"]), ivf=rank11c_ivf(dev, b["ivf"]),
+               engine=rank11d_engine(dev, b["engine"]))
+    out["hybrid"], mine10m = rank11e_hybrid(dev, b["hybrid"])
+    out["traversal"] = rank11f_traversal(dev, b["traversal"], mine10m)
+    return out
 
 
 def _devices(every):
     return "[" + ", ".join(e["dev"] for e in every) + "]"
 
 
-def phase11_sharded(dev, seed, ctx3, ctx6, p6):
+def trav_slots_by_rank(eng, reqs, cfg, n_ranks=4):
+    """For each rank of the 2 x 2 mesh over ``eng``'s store, the routed
+    slots of ``reqs`` (summed) whose rows it holds: the count of its
+    windowed traversal launches.  Also the requests in which some rank
+    holds none of the routed rows."""
+    rps = -(-eng.index.n_pad // n_ranks)
+    held, idle = [0] * n_ranks, 0
+    for question, qtexts, years, qe in reqs:
+        rq = eng.prepare(qe, COMPANY, question, years, cfg, qtexts)
+        mine = [0] * n_ranks
+        for m in range(len(rq.doc_valid)):
+            lo, hi = int(rq.win_start[m]), int(rq.win_start[m] + rq.win_len[m])
+            if not rq.doc_valid[m] or hi <= lo:
+                continue
+            for r in range(n_ranks):
+                mine[r] += max(lo, r * rps) < min(hi, (r + 1) * rps)
+        held = [a + b for a, b in zip(held, mine)]
+        idle += 0 in mine
+    return held, idle
+
+
+def same_traversal(name, got, ref, cfg, index, eng):
+    """The sharded engine's ``(fused, details)`` of each request against the
+    single-device card engine's: paths and details by :func:`same_details`
+    (rows equal where clear of ties, scores within 1e-4), then the fused
+    candidates (:func:`same_candidates`) of every request whose walkers all
+    took the same paths.  Returns ``(walkers, left out, differing behind a
+    proven cut-off tie, tie groups reordered, requests whose paths differ)``."""
+    import torch
+
+    tot = [0, 0, 0, 0, 0]
+    for (gc, gd), (rc, rd) in zip(got, ref):
+        rd = on_host(rd)
+        w, left, cut = same_details(name, eng, index, cfg, gd, rd)
+        alike = all(torch.equal(gd[k].path, rd[k].path) for k in gd
+                    if isinstance(gd[k], tuple))
+        reordered = same_candidates(gc, rc, 1e-4) if alike else 0
+        tot = [a + b for a, b in zip(tot, (w, left, cut, reordered, int(not alike)))]
+    check_walkers(name, tot[0], tot[1], tot[2])
+    return tot
+
+
+def phase11f_check(eng, reqs, cfgs, single, hyb, cfg10, tr, p7):
+    """11f's checks in the parent: (a) the deployment's three methods
+    against the single-device card engine, K1 / K3 launches by rank exactly
+    as the routed rows each rank holds ask for (a rank that holds none of
+    a request's rows launches nothing and still takes part in every
+    merge); (b) the 10M int8 hybrid_expansion against phase 7d's."""
+    out = {}
+    log(f"11f: traversal through QueryEngine(hier=...) on the 2 x 2 mesh; window "
+        f"{tr['window']}; the rank program ran 11f in {tr['seconds']:.1f} s")
+    check(tr["window"] > 0, "11f: the sharded deployment must walk windows")
+    R = len(reqs)
+    for m, cfg in cfgs.items():
+        t = tr[m]
+        every = t["every"]
+        check(len({e["digest"] for e in every}) == 1,
+              f"11f {m}: the ranks' results differ")
+        walkers, left, cut, reordered, apart = same_traversal(
+            f"11f {m}", t["got"], single[m], cfg, eng.index, eng)
+        held, idle = trav_slots_by_rank(eng, reqs, cfg)
+        # a slot's walkers: 8 (ssg / triangulation: 1 anchor call + 4 hops of
+        # K1) or 80 + 160 (hybrid: 1 basic K1 + 4 SSG hops of K3 + 4
+        # triangulation hops of 2 K3 launches, 128 + 32)
+        k1, k3 = (5, 0) if m != "hybrid_expansion" else (1, 12)
+        per_rank = [e["launches"] for e in every]
+        for r, (p, e) in enumerate(zip(per_rank, every)):
+            check(p["dense_topk"] == k1 * held[r] and p["stream_topk"] == k3 * held[r]
+                  and e["regimes"]["float"] == p["stream_topk"] and p["span_gather"] > 0,
+                  f"11f {m}: rank {r} launched {p} ({e['regimes']}), expected K1 "
+                  f"{k1 * held[r]} and K3 {k3 * held[r]} for its {held[r]} routed slots")
+        check(all(p["dense_topk"] + p["stream_topk"] > 0 for p in per_rank),
+              f"11f {m}: a rank launched neither K1 nor K3: {per_rank}")
+        sums = {k: sum(p[k] for p in per_rank) / R for k in per_rank[0]}
+        one = p7["deploy"][f"{m}+bm25"]["ms_per_request"]
+        out[m] = dict(ms_per_request=t["ms"], single_ms_per_request=one,
+                      launches_per_request=sums,
+                      launches_by_rank=[{k: v / R for k, v in p.items()} for p in per_rank],
+                      walkers=walkers, left_out=left, differ_cut_off=cut,
+                      reordered_ties=reordered, paths_apart=apart,
+                      requests_with_an_idle_rank=idle)
+        log(f"11f {m}+bm25: {R} requests == the single-device card engine (paths and "
+            f"details equal on {walkers - left - cut} of {walkers} walkers, {left} left "
+            f"out as tied, {cut} differ behind a proven tie at a hop's cut-off; fused "
+            f"candidates within 1e-4 on {R - apart} requests whose paths all agree, "
+            f"tie groups reordered {reordered}); every rank's results identical; "
+            f"{t['ms']:.2f} ms a request against 7b's {one:.2f}; launches a request by "
+            "rank " + "; ".join(f"K1 {p['dense_topk'] / R:g} K3 {p['stream_topk'] / R:g} "
+                                f"K2 {p['span_gather'] / R:g}" for p in per_rank)
+            + f" (routed slots held {held}; {idle} of {R} requests leave a rank none of "
+            f"their rows); {P11_ONE_CARD}")
+    t = tr["int8_10m"]
+    every = t["every"]
+    check(len({e["digest"] for e in every}) == 1, "11f 10M int8: the ranks' results differ")
+    walkers, left, cut, reordered, apart = same_traversal(
+        "11f 10M int8 hybrid_expansion", t["got"], hyb["expansion"], cfg10, hyb["idx"],
+        None)
+    per_rank = [e["launches"] for e in every]
+    check(all(p["dense_topk"] == 0 for p in per_rank)
+          and all(e["regimes"]["float"] == 0 for e in every)
+          and sum(p["stream_topk"] for p in per_rank) > 0,
+          f"11f 10M int8: only the basic block may launch K3 (int8): {per_rank}")
+    n = len(t["got"])
+    one = p7["int8_10m"]["hybrid_expansion"]["ms_per_request"]
+    out["int8_10m"] = dict(ms_per_request=t["ms"], single_ms_per_request=one,
+                           launches_by_rank=[{k: v / n for k, v in p.items()}
+                                             for p in per_rank],
+                           walkers=walkers, left_out=left, differ_cut_off=cut,
+                           reordered_ties=reordered, paths_apart=apart)
+    log(f"11f 10M int8 hybrid_expansion+bm25: {n} requests == phase 7d's single-device "
+        f"results ({walkers - left - cut} of {walkers} walkers equal, {left} left out as "
+        f"tied, {cut} behind a proven cut-off tie; fused candidates within 1e-4 on "
+        f"{n - apart} requests); {t['ms']:.1f} ms a request against 7d's {one:.1f}; "
+        "launches a request by rank " + "; ".join(
+            f"K3 {p['stream_topk'] / n:g} K2 {p['span_gather'] / n:g}" for p in per_rank)
+        + f"; {P11_ONE_CARD}")
+    out["seconds"] = tr["seconds"]
+    return out
+
+
+def phase11_sharded(dev, seed, ctx3, ctx6, p6, p7):
     """Phase 11: the sharded serving path (the JAX package's config-5 form)
-    on the card.  11a: an NCCL world of one rank.  11b-e: one gloo world of
+    on the card.  11a: an NCCL world of one rank.  11b-f: one gloo world of
     4 ranks, all on cuda:0, handed the stores through CUDA IPC: config 5's
     10M int8 scan flat and two-level, the sharded IVF at 1M, the engine's
-    hier / ShardedSparseIndex / ShardedIVF branches on the deployment, and
-    the 10M hybrid end to end, each held against the single-device path."""
+    hier / ShardedSparseIndex / ShardedIVF branches on the deployment, the
+    10M hybrid end to end, and the traversal methods over the sharded
+    deployment and 10M stores, each held against the single-device path."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -4601,6 +4826,15 @@ def phase11_sharded(dev, seed, ctx3, ctx6, p6):
     # 11e: 6c's hybrid and its CSR partitioned on the host, stacked on the card
     hyb = data["hybrid"]
     stacked, t_part = wall(lambda: shard_sparse_index(hyb["idx"].sparse, 4), dev)
+    # 11f: the single-device card engine's traversal of phase 3's requests
+    # (7b's configurations with BM25), and 7d's 10M int8 hybrid_expansion
+    trav_cfgs = {m: SearchConfig(method=m, top_k=30, top_n=30, use_bm25=True,
+                                 bm25_top_k=30) for m in TRAV_METHODS}
+    trav_single = {m: [eng.search(qe, COMPANY, question, years, c, query_texts=qtexts,
+                                  with_details=True)
+                       for question, qtexts, years, qe in reqs]
+                   for m, c in trav_cfgs.items()}
+    cfg10 = dataclasses.replace(hyb["cfg"], method="hybrid_expansion")
     log(f"11e: the 10M CSR ({int(hyb['idx'].sparse.indptr[-1])} postings) partitioned "
         f"into 4 row-range shards on the host in {t_part:.1f} s "
         f"(L {stacked.chunk_ids.shape[1]}, max_postings {stacked.max_postings})")
@@ -4609,12 +4843,16 @@ def phase11_sharded(dev, seed, ctx3, ctx6, p6):
         ivf=dict(emb=emb1m, q=q1m, K=K_SHARD, nprobes=(2, 4, 8, K_SHARD)),
         engine=dict(idx=eng.index, meta=eng.meta, requests=reqs, cfgs=cfgs, K=32),
         hybrid=dict(idx=hyb["idx"], sparse=stacked, hreqs=hyb["hreqs"], cfg=hyb["cfg"],
-                    window=hyb["window"]))
+                    window=hyb["window"]),
+        traversal=dict(
+            deploy=dict(idx=eng.index, meta=eng.meta, requests=reqs, cfgs=trav_cfgs),
+            int8=dict(hreqs=hyb["hreqs"][:len(hyb["expansion"])], cfg=cfg10,
+                      window=hyb["window"])))
     r, t_world = wall(lambda: run_ranks(rank11_world, 4, "gloo", dev.type, (bundle,),
                                         timeout=900), dev)
     del bundle, stacked
     torch.cuda.empty_cache()
-    log(f"11b-e: one gloo world of 4 ranks on the card started, ran and ended in "
+    log(f"11b-f: one gloo world of 4 ranks on the card started, ran and ended in "
         f"{t_world:.1f} s")
 
     # 11b
@@ -4721,6 +4959,8 @@ def phase11_sharded(dev, seed, ctx3, ctx6, p6):
     out["hybrid"] = dict(ms_per_request=hy["ms"], qps=nq / hy["ms"] * 1e3,
                          single_qps=one["qps"], launches_per_request=sums,
                          launches_per_rank=per_rank, reordered_ties=reordered)
+    out["traversal"] = phase11f_check(eng, reqs, trav_cfgs, trav_single, hyb, cfg10,
+                                      r["traversal"], p7)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 11 took {out['seconds']:.1f} s")
     return out
@@ -5249,7 +5489,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     p6, ctx6 = phase6_scan10m(dev, args.seed, ctx3, ctx5)
     p7["int8_10m"] = p6["engine"]["traversal_10m"]
-    p11 = phase11_sharded(dev, args.seed, ctx3, ctx6, p6)
+    p11 = phase11_sharded(dev, args.seed, ctx3, ctx6, p6, p7)
     del ctx6
     torch.cuda.empty_cache()
 
@@ -5283,6 +5523,9 @@ def main(argv=None):
     p11d = p11["engine"]["bm25"]["launches_per_request"]
     p11ivf = p11["engine"]["bm25_ivf"]["launches_per_request"]
     p11e = p11["hybrid"]["launches_per_request"]
+    # 11f: one traversal request through the sharded engine, summed over its
+    # 4 ranks (the deployment, f32: ssg's hops are K1, hybrid_expansion's K3)
+    p11f = {m: p11["traversal"][m]["launches_per_request"] for m in TRAV_METHODS}
     # phase 12: one request over the MoE-embedded deployment index (12b,
     # basic + BM25), and the dry run's launches summed over its 4 ranks (12e)
     p12b = p12["serving"]["bm25"]["launches_per_request"]
@@ -5303,6 +5546,10 @@ def main(argv=None):
          "launches_per_e2e_quality_question": p10e2e["dense_topk"],
          "launches_per_quality_eval": p10eval["dense_topk"],
          "launches_per_sharded_request": p11d["dense_topk"],
+         "launches_per_sharded_ssg_request": p11f["ssg"]["dense_topk"],
+         "launches_per_sharded_triangulation_request":
+             p11f["triangulation"]["dense_topk"],
+         "launches_per_sharded_hybrid_request": p11f["hybrid_expansion"]["dense_topk"],
          "launches_per_moe_request": p12b["dense_topk"],
          "launches_in_dryrun": p12e["dense_topk"],
          "max_abs_err": max(k["k1_err"], p7["hops"]["err"], p9err("dense_topk")),
@@ -5377,6 +5624,10 @@ def main(argv=None):
          # 11d's f32 deployment store (8 queries a slot: K1, so 0); no bf16
          # store is on the sharded path
          "launches_per_sharded_request": (p11d["stream_topk"] if short == "f32" else None),
+         # 11f: the hops of one hybrid_expansion request on the sharded f32
+         # deployment store, summed over the 4 ranks
+         "launches_per_sharded_hybrid_request": (
+             p11f["hybrid_expansion"]["stream_topk"] if short == "f32" else None),
          "max_abs_err": max(p6["k3_1m"][long]["err"], p7["hops"]["err"],
                             p6["engine"][f"search_many_{long}"]["slot_err"]),
          "ms": p6["k3_1m"][long]["ms"], "plain_ms": p6["k3_1m"][long]["plain_ms"],

@@ -68,6 +68,17 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def gather_rows_f32(emb: torch.Tensor, row_scale: Optional[torch.Tensor],
+                    idx: torch.Tensor) -> torch.Tensor:
+    """``emb[idx]`` as f32 ``[*idx.shape, D]`` whatever the store dtype: an
+    int8 store's rows (``row_scale`` given) are dequantized."""
+    idx = idx.long()
+    v = emb[idx].float()
+    if row_scale is not None:
+        v = v * row_scale[idx][..., None]
+    return v
+
+
 def quantize_query_2pass(
     q: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -21,8 +21,10 @@ gives each rank its own card).  Every rank runs, and checks, what the reference 
   N/2 against the flat merge, and the engine's dense + BM25 + fusion with
   that merge (``QueryEngine(hier=...)``) against the single-device engine;
 * the engine's hybrid (dense + BM25 + fusion) over row-sharded dense rows
-  and CSR shards, and its probe-served form (a ``ShardedIVF`` at
-  nprobe = K), against the single-device engine.
+  and CSR shards, the traversal-inclusive graph over the same shards
+  (``hybrid_expansion``: basic top-50 + SSG + triangulation + BM25 +
+  fusion, the hops merged over the ranks), and the probe-served hybrid
+  (a ``ShardedIVF`` at nprobe = K), against the single-device engine.
 
 The engines' results are held to the single device's as the reference
 holds them, but that rows whose fused scores tie within 1e-4 may come in
@@ -30,9 +32,6 @@ another order (the corpus's chunks of a document share their BM25
 score; the probe kernel and the scan kernel round the dense score in
 another order, so the candidates of a tie arrive in another order).
 
-The reference's hybrid parity also walks ``hybrid_expansion`` over the
-sharded store; traversal on a row-sharded store is not ported yet
-(``QueryEngine(hier=...)`` raises for it), and the summary says so.
 Rank 0 prints one summary line; a failed check ends the run non-zero.
 """
 
@@ -192,6 +191,13 @@ def _hybrid_sharded_parity(dev, n):
     eng = _sharded_engine(idx, meta, mesh, grid, sparse=True)
     got = eng.materialize(eng.search(q, COMPANY, cfg=cfg, query_texts=["营业收入"]), cfg)
     reordered = _same(got, base, "the sharded hybrid", counts=True)
+    # the traversal-inclusive graph over the same shards
+    cfg_he = dataclasses.replace(cfg, method="hybrid_expansion")
+    base_he = base_eng.materialize(
+        base_eng.search(q, COMPANY, cfg=cfg_he, query_texts=["营业收入"]), cfg_he)
+    got_he = eng.materialize(eng.search(q, COMPANY, cfg=cfg_he, query_texts=["营业收入"]),
+                             cfg_he)
+    reordered += _same(got_he, base_he, "the sharded hybrid_expansion")
     kc = 2
     sivf = build_sharded_ivf(idx.emb, mesh, n_clusters=kc, iters=4, valid=idx.valid,
                              axis=grid)
@@ -200,9 +206,9 @@ def _hybrid_sharded_parity(dev, n):
     got_ivf = eng_ivf.materialize(
         eng_ivf.search(q, COMPANY, cfg=cfg_ivf, query_texts=["营业收入"]), cfg_ivf)
     reordered += _same(got_ivf, base, "the sharded probe-served hybrid")
-    return (f"OK ({len(got)} fused rows + probe-served {len(got_ivf)} rows, {n} CSR+dense "
-            f"shards, tie groups reordered {reordered}; hybrid_expansion on a row-sharded "
-            f"store: not ported, ROADMAP A.14f)")
+    return (f"OK ({len(got)} fused rows + hybrid_expansion {len(got_he)} rows + "
+            f"probe-served {len(got_ivf)} rows, {n} CSR+dense shards, tie groups "
+            f"reordered {reordered})")
 
 
 def dryrun_rank(dev: torch.device, n: int) -> dict:

@@ -24,7 +24,7 @@ order: the collectives pair up by call.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,41 +47,53 @@ def all_gather_stacked(x: torch.Tensor, group) -> torch.Tensor:
     return torch.stack(parts)
 
 
-def merge_candidates(vals: torch.Tensor, rows: torch.Tensor, group, k: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def merge_candidates(vals: torch.Tensor, rows: torch.Tensor, group, k: int,
+                     payload: Sequence[torch.Tensor] = ()) -> Tuple[torch.Tensor, ...]:
     """All-gather ``[..., k_in]`` candidates (global rows, -1 = none) over
     ``group`` and keep the top ``min(k, S·k_in)`` per leading index: order
     by row, then a stable descending selection, so equal values go to the
-    lower global row and row-less candidates come last."""
-    av = all_gather_stacked(vals, group)                # [S, ..., k_in]
-    ai = all_gather_stacked(rows, group)
+    lower global row and row-less candidates come last.
+
+    ``payload``: f32 columns of ``vals``' shape that travel with their
+    candidates (one all-gather beside the values').  Returns ``(vals,
+    rows)``, then the selected payload columns in order."""
     lead = vals.shape[:-1]
-    return select_lowest_rows(av.movedim(0, -2).reshape(*lead, -1),
-                              ai.movedim(0, -2).reshape(*lead, -1), k)
+    af = all_gather_stacked(torch.stack([vals, *payload]), group)   # [S, 1+P, ..., k_in]
+    ai = all_gather_stacked(rows, group)                            # [S, ..., k_in]
+    cols = [af[:, j].movedim(0, -2).reshape(*lead, -1) for j in range(af.shape[1])]
+    return select_lowest_rows(cols[0], ai.movedim(0, -2).reshape(*lead, -1), k,
+                              cols[1:])
 
 
-def select_lowest_rows(vals: torch.Tensor, rows: torch.Tensor, k: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+def select_lowest_rows(vals: torch.Tensor, rows: torch.Tensor, k: int,
+                       payload: Sequence[torch.Tensor] = ()) -> Tuple[torch.Tensor, ...]:
     """The top ``min(k, n)`` of ``[..., n]`` candidates (global rows, -1 =
     none), equal values to the lower row: order by row, then a stable
-    descending selection (never ``torch.topk``, which has no tie order)."""
+    descending selection (never ``torch.topk``, which has no tie order).
+    ``payload`` columns (``vals``' shape) are gathered by the same indices
+    and returned after ``(vals, rows)``."""
     key = torch.where(rows >= 0, rows.long(),
                       torch.full_like(rows, _NO_ROW, dtype=torch.long))
     order = torch.sort(key, dim=-1, stable=True)[1]
     vals = torch.gather(vals, -1, order)
     rows = torch.gather(rows, -1, order)
     mv, midx = stable_topk(vals, min(k, vals.shape[-1]))
-    return mv, torch.gather(rows, -1, midx)
+    return (mv, torch.gather(rows, -1, midx),
+            *(torch.gather(torch.gather(p, -1, order), -1, midx) for p in payload))
 
 
 def merge_over(vals: torch.Tensor, rows: torch.Tensor, mesh: DeviceMesh,
-               axis: Axes, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+               axis: Axes, k: int, payload: Sequence[torch.Tensor] = ()
+               ) -> Tuple[torch.Tensor, ...]:
     """:func:`merge_candidates` over one mesh axis, or over several from
     the innermost out (the two-level merge: each outer level ships k
-    candidates a group, and the tie rule makes it equal the flat merge)."""
+    candidates a group, and the tie rule makes it equal the flat merge).
+    ``payload`` columns travel with their candidates at every level."""
+    payload = tuple(payload)
     for a in reversed(axis_names(axis)):
-        vals, rows = merge_candidates(vals, rows, mesh.get_group(a), k)
-    return vals, rows
+        vals, rows, *payload = merge_candidates(vals, rows, mesh.get_group(a), k,
+                                                payload)
+    return (vals, rows, *payload)
 
 
 def _shard_of(x: torch.Tensor, mesh: DeviceMesh, axis: Axes, fill) -> torch.Tensor:

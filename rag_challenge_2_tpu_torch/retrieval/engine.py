@@ -28,7 +28,11 @@ runs on every rank: ``hier=(mesh, slice_axis, dev_axis)`` with a
 row-sharded store sends the basic dense stage through the two-level
 merge, a ``ShardedSparseIndex`` merges BM25 over its CSR shards, and a
 ``ShardedIVF`` probes each rank's own IVF; fusion and materialisation run
-alike on every rank.  Traversal needs every rank's rows and raises there.
+alike on every rank.  The traversal methods walk the sharded store too:
+a hop is a sharded top-k over each rank's rows of the slot (K1 / K3 on
+every rank) and a row read goes to the row's owner
+(``parallel/sharded_traversal.py``), so every rank returns the
+single-device result.
 
 Queries are padded to ``max_queries`` and routed documents to
 ``max_docs`` like the reference, so the fused hit lists keep its shapes;
@@ -56,6 +60,7 @@ from ..parallel.mesh import axis_index
 from ..parallel.sharded_ivf import ShardedIVF, sharded_ivf_search
 from ..parallel.sharded_search import make_hierarchical_topk
 from ..parallel.sharded_sparse import sharded_bm25_topk
+from ..parallel.sharded_traversal import RowShard
 from .traversal import (CAND_RECORD, TraversalResult, emit_hits, traverse,
                         traverse_windowed)
 
@@ -211,13 +216,18 @@ def hier_dense_hits(index: CorpusIndex, req: Request, cfg: SearchConfig, hier,
         vals, rows = kern(q, index.emb, req.doc_masks, req.q_valid, req.doc_valid,
                           *rest, win_start=req.win_start, win_len=req.win_len)
     else:
-        lo = axis_index(mesh, (s_ax, d_ax)) * rps
-        masks = req.doc_masks[:, lo: lo + rps]
-        if masks.shape[1] < rps:                 # the padded tail of the store
-            masks = torch.nn.functional.pad(masks, (0, rps - masks.shape[1]))
-        vals, rows = kern(q, index.emb, masks.contiguous(), req.q_valid,
-                          req.doc_valid, *rest)
+        masks = _rank_rows(req.doc_masks, axis_index(mesh, (s_ax, d_ax)) * rps, rps)
+        vals, rows = kern(q, index.emb, masks, req.q_valid, req.doc_valid, *rest)
     return _basic_block(vals, rows, Q, M)
+
+
+def _rank_rows(masks: torch.Tensor, lo: int, rps: int) -> torch.Tensor:
+    """``[..., N]`` row masks cut to one rank's rows ``[lo, lo + rps)`` of
+    the padded store (the padded tail masked out)."""
+    masks = masks[..., lo: lo + rps]
+    if masks.shape[-1] < rps:
+        masks = torch.nn.functional.pad(masks, (0, rps - masks.shape[-1]))
+    return masks.contiguous()
 
 
 @torch.inference_mode()
@@ -343,14 +353,16 @@ def _blank_traversal(A: int, cfg: SearchConfig, dev) -> TraversalResult:
 @torch.inference_mode()
 def run_traverse(index: CorpusIndex, req: Request, cfg: SearchConfig,
                  window: int, anchors_pm: torch.Tensor, mode: str,
-                 n_requests: int = 1):
+                 n_requests: int = 1, shard: Optional[RowShard] = None):
     """Traverse from ``[Q*M, n]`` global anchor rows (-1 = inactive).
 
     The ``Q*n`` walkers of a routed slot share its rows, so each slot is
     one traversal whose hops are ``dense_topk`` calls (f32 / bf16 stores):
     over the view ``emb[start : start + len]`` when the corpus is windowed,
     else over the whole store under the slot's ``[N]`` row mask.  Unrouted
-    slots are skipped on the host.
+    slots are skipped on the host.  With ``shard`` (this rank's part of a
+    row-sharded store) each slot walks this rank's rows of its range, or
+    its mask cut to them, and every rank returns the same result.
 
     Returns ``(res, qids [A], qv [A, D])`` over ``A = M*Q*n`` walkers, in
     the JAX engine's order: (m, q, n) when the corpus is windowed and one
@@ -376,9 +388,12 @@ def run_traverse(index: CorpusIndex, req: Request, cfg: SearchConfig,
         elif window > 0:
             parts.append(traverse_windowed(
                 emb, a_g[m : m + 1], qv_g[None], req.win_start[m : m + 1],
-                req.win_len[m : m + 1], scale, window=window, **kw))
+                req.win_len[m : m + 1], scale, window=window, shard=shard, **kw))
         else:
-            parts.append(traverse(emb, a_g[m], qv_g, req.doc_masks[m], scale, **kw))
+            mask = req.doc_masks[m]
+            if shard is not None:
+                mask = _rank_rows(mask, shard.base, emb.shape[0])
+            parts.append(traverse(emb, a_g[m], qv_g, mask, scale, shard=shard, **kw))
     R, Qr = n_requests, Q // n_requests
     # [M, R, Qr, n, ...] -> request-major, slot- or query-major inside
     order = (1, 0, 2, 3) if slot_major else (1, 2, 0, 3)
@@ -402,11 +417,11 @@ def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
     if cfg.use_ivf and ivf is None:
         raise ValueError("SearchConfig.use_ivf requires an IVFIndex "
                          "(QueryEngine.build_ivf() first)")
-    if hier is not None and cfg.method != "basic":
-        raise NotImplementedError(
-            f"method {cfg.method!r} on a row-sharded store (hier=): the walkers "
-            "hop over rows of every rank, and traversal on a row-sharded store "
-            "is not ported yet (ROADMAP A.14f)")
+    shard = None
+    if hier is not None:
+        mesh, s_ax, d_ax = hier
+        shard = RowShard.of_store(mesh, (s_ax, d_ax), index.emb.shape[0],
+                                  req.doc_masks.shape[1])
 
     def basic_block(k: int) -> Block:
         # use_ivf only serves the basic block: the anchors' top-1 and the
@@ -419,8 +434,8 @@ def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
 
     def expansion(anchors_pm: torch.Tensor, mode: str):
         res, qids_t, qv_flat = run_traverse(index, req, cfg, window, anchors_pm,
-                                            mode, n_requests)
-        rows, sims = emit_hits(index.emb, qv_flat, res, index.emb_scale)
+                                            mode, n_requests, shard=shard)
+        rows, sims = emit_hits(index.emb, qv_flat, res, index.emb_scale, shard=shard)
         mids = torch.full(rows.shape, METHOD_IDS[mode], dtype=torch.int32,
                           device=rows.device)
         return (rows, sims, qids_t[:, None].expand(rows.shape), mids,
@@ -431,8 +446,11 @@ def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
     if cfg.method == "basic":
         blocks.append(basic_block(cfg.top_k))
     elif cfg.method in ("ssg", "triangulation"):
-        # anchor = top-1 per (query, doc)
-        rows, _, _, _, ok = dense_hits(index, req, cfg, window, 1)
+        # anchor = top-1 per (query, doc), exact under use_ivf too
+        if hier is not None:
+            rows, _, _, _, ok = hier_dense_hits(index, req, cfg, hier, window, 1)
+        else:
+            rows, _, _, _, ok = dense_hits(index, req, cfg, window, 1)
         anchor = torch.where(ok, rows, torch.full_like(rows, -1))[:, :1]
         block, res, qids_t = expansion(anchor, cfg.method)
         blocks.append(block)
@@ -465,9 +483,10 @@ def search_device(
 
     ``hier = (mesh, slice_axis, dev_axis)``: ``index.emb`` (and
     ``emb_scale``) hold only this rank's rows, sharded over the flattened
-    (slice, device) grid, and the dense stage of ``method="basic"`` runs
-    the two-level merge (:func:`hier_dense_hits`); called on every rank,
-    each returns the same result.
+    (slice, device) grid; the dense stage runs the two-level merge
+    (:func:`hier_dense_hits`) and the traversals hop over every rank's
+    rows (``parallel.sharded_traversal``); called on every rank, each
+    returns the same result and details.
 
     Returns ``(fused_candidates, details)``.  ``details`` is empty for the
     basic method; for ``ssg`` / ``triangulation`` it holds ``trav`` (a
@@ -525,7 +544,8 @@ class QueryEngine:
         # IVFIndex, or a parallel.ShardedIVF (distributed probes)
         self.ivf = ivf
         # optional (mesh, slice_axis, dev_axis): index.emb holds this rank's
-        # rows and the dense stage runs the two-level merge
+        # rows, the dense stage runs the two-level merge and the traversals
+        # hop over every rank's rows
         self.hier = hier
         self.device = index.emb.device
         self._doc_ids_np = index.doc_id.cpu().numpy()

@@ -27,7 +27,11 @@ per walker:
   value, ``q·x`` and ``‖x‖²`` come from a gather of the k + 1 candidate
   rows, and it never stops early;
 * the hop loop is a Python loop with no device synchronisation: the early
-  stop is a mask, not a ``break``.
+  stop is a mask, not a ``break``;
+* on a row-sharded store (``shard=``, a
+  ``parallel.sharded_traversal.RowShard``) each rank hops over its own
+  rows and the candidates merge over the mesh, where the JAX package lets
+  GSPMD partition the same program.
 
 ``approx_rt`` is accepted and every hop is exact (``ops/topk.py``).
 """
@@ -39,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import device  # noqa: F401  (full-f32 matmuls for the plain hops)
+from ..ops.quant import gather_rows_f32
 from ..ops.topk import NEG_INF, dense_topk, fill_overflow, stable_topk, wide_topk
 
 
@@ -65,15 +70,6 @@ HOP_APPROX_MIN_COLS = 1 << 16
 HOP_BLOCK_ROWS = 1 << 16
 
 
-def _gather_vecs(emb, row_scale, idx):
-    """Dequantizing row gather: f32 vectors whatever the store dtype."""
-    idx = idx.long()
-    v = emb[idx].float()
-    if row_scale is not None:
-        v = v * row_scale[idx][..., None]
-    return v
-
-
 def _plain_hop(lhs, emb, row_scale, mask, k):
     """Top-k of ``lhs · rows`` by ``ops.topk.wide_topk`` in blocks of
     :data:`HOP_BLOCK_ROWS` rows, with the one-shot top-k's overflow slots
@@ -84,7 +80,7 @@ def _plain_hop(lhs, emb, row_scale, mask, k):
 
 
 def _hop_candidates(cur_vec, emb, row_scale, mask, path, neighbor_k,
-                    query_vec=None, approx_rt=None):
+                    query_vec=None, approx_rt=None, shard=None):
     """Top-(k+1) neighbours of the current vectors among ``emb``'s rows,
     with visited flags; always k + 1 columns (a store of fewer rows pads
     with NEG_INF / row -1).
@@ -93,10 +89,16 @@ def _hop_candidates(cur_vec, emb, row_scale, mask, path, neighbor_k,
     (triangulation) ``qx`` is the per-candidate ``q·x`` and ``xn2`` the
     candidate's ``‖x‖²``, both from one gather of the k + 1 candidate rows
     (the JAX package reads them from a second score matrix and a row-norm
-    table); else both are None."""
+    table); else both are None.  With ``shard`` (a
+    ``parallel.sharded_traversal.RowShard``) ``emb`` is this rank's rows
+    of the frame, possibly none: the rank's k + 1 candidates, with ``q·x``
+    and ``‖x‖²`` of its own rows, merge over the mesh into frame rows."""
     k = neighbor_k + 1
     shared = mask is None or mask.dim() == 1
-    if emb.dtype != torch.int8 and shared:
+    if emb.shape[0] == 0:                  # a rank that holds none of the rows
+        vals = cur_vec.new_empty((cur_vec.shape[0], 0), dtype=torch.float32)
+        ids = torch.empty((cur_vec.shape[0], 0), dtype=torch.int32, device=emb.device)
+    elif emb.dtype != torch.int8 and shared:
         vals, ids = dense_topk(cur_vec, emb, k, mask=mask)
     else:
         vals, ids = _plain_hop(cur_vec, emb, row_scale, mask, k)
@@ -104,12 +106,18 @@ def _hop_candidates(cur_vec, emb, row_scale, mask, path, neighbor_k,
         pad = k - vals.shape[1]
         vals = torch.cat([vals, vals.new_full((vals.shape[0], pad), NEG_INF)], 1)
         ids = torch.cat([ids, ids.new_full((ids.shape[0], pad), -1)], 1)
+    terms = ()
+    if query_vec is not None and emb.shape[0]:
+        # [A, k+1, D] on every rank as on one device, so a candidate's
+        # terms are summed in the same order wherever it is scored
+        x = gather_rows_f32(emb, row_scale, ids.clamp(min=0))
+        terms = (torch.einsum("ad,akd->ak", query_vec.float(), x), (x * x).sum(dim=2))
+    elif query_vec is not None:
+        terms = (torch.zeros_like(vals), torch.zeros_like(vals))
+    if shard is not None:
+        vals, ids, *terms = shard.hop_topk(vals, ids, terms)
     visited = (path[:, :, None] == ids[:, None, :]).any(dim=1)
-    qx = xn2 = None
-    if query_vec is not None:
-        x = _gather_vecs(emb, row_scale, ids.clamp(min=0))          # [A, k+1, D]
-        qx = torch.einsum("ad,akd->ak", query_vec.float(), x)
-        xn2 = (x * x).sum(dim=2)
+    qx, xn2 = terms if terms else (None, None)
     return vals, ids, visited, qx, xn2
 
 
@@ -125,6 +133,7 @@ def traverse(
     neighbor_k: int = 30,
     mode: str = "ssg",
     approx_rt: Optional[float] = None,
+    shard=None,
 ) -> TraversalResult:
     """Run SSG or Triangulation traversal for a batch of anchors.
 
@@ -139,12 +148,20 @@ def traverse(
             K1 and K3 take no per-query mask, so with an ``[A, N]`` mask
             the hops are computed in plain PyTorch on the card as well;
             the engine groups its walkers by document slot and passes the
-            slot's ``[N]`` mask instead.
+            slot's ``[N]`` mask instead.  With ``shard`` the mask covers
+            this rank's rows: ``[n_local]`` or ``[A, n_local]``.
         mode: "ssg" | "triangulation".
+        shard: a ``parallel.sharded_traversal.RowShard``: ``emb`` (and
+            ``row_scale``, ``mask``) hold only this rank's rows of a
+            row-sharded frame of ``shard.n_rows`` rows (possibly none);
+            anchors, paths and candidates are frame rows.  Every rank of
+            the mesh calls this in the same order and gets the same
+            result, the single-device traversal of the whole frame.
     """
     if mode not in ("ssg", "triangulation"):
         raise ValueError(f"mode must be 'ssg' or 'triangulation', got {mode!r}")
-    A, H, N = anchor_idx.shape[0], max_hops, emb.shape[0]
+    A, H = anchor_idx.shape[0], max_hops
+    N = emb.shape[0] if shard is None else shard.n_rows
     dev = emb.device
     k1 = neighbor_k + 1
     R = min(CAND_RECORD, k1)
@@ -156,14 +173,19 @@ def traverse(
     hop_score = torch.zeros((A, H + 1), dtype=torch.float32, device=dev)
     cand_ids = torch.full((A, H, R), -1, dtype=torch.int32, device=dev)
     cand_scores = torch.zeros((A, H, R), dtype=torch.float32, device=dev)
-    if N == 0 or A == 0:
+    if N == 0 or A == 0:          # the same on every rank of a sharded frame
         return TraversalResult(path, path >= 0, hop_score, cand_ids, cand_scores)
     if mask is not None:
         mask = mask.bool().contiguous()
 
+    def read(idx):                # f32 rows of the frame, on every rank
+        if shard is None:
+            return gather_rows_f32(emb, row_scale, idx)
+        return shard.gather_rows(emb, row_scale, idx)
+
     q_f = query_vec.float()
     cur_idx = anchor_idx.clamp(min=0)
-    cur_vec = _gather_vecs(emb, row_scale, cur_idx)
+    cur_vec = read(cur_idx)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     if mode == "ssg":
@@ -177,7 +199,8 @@ def traverse(
     for hop in range(H):
         vals, ids, visited, qx, xn2 = _hop_candidates(
             cur_vec.contiguous(), emb, row_scale, mask, path, neighbor_k,
-            query_vec=None if mode == "ssg" else q_f, approx_rt=approx_rt)
+            query_vec=None if mode == "ssg" else q_f, approx_rt=approx_rt,
+            shard=shard)
         cand_ok = ~visited & (vals > NEG_INF / 2)
         if mode == "ssg":
             # step score = chunk-to-chunk similarity = the hop's own score
@@ -208,8 +231,7 @@ def traverse(
         cand_ids[:, hop] = torch.where(rec_ok, r_ids, torch.full_like(r_ids, -1))
         cand_scores[:, hop] = torch.where(rec_ok, r_vals, zero)
 
-        cur_vec = torch.where(step[:, None],
-                              _gather_vecs(emb, row_scale, cur_idx), cur_vec)
+        cur_vec = torch.where(step[:, None], read(cur_idx), cur_vec)
         prev_sim = torch.where(step, best_score, prev_sim)
         active = step
     return TraversalResult(path, path >= 0, hop_score, cand_ids, cand_scores)
@@ -235,6 +257,7 @@ def traverse_windowed(
     neighbor_k: int = 30,
     mode: str = "ssg",
     approx_rt: Optional[float] = None,
+    shard=None,
 ) -> TraversalResult:
     """:func:`traverse` restricted to per-group document row ranges.
 
@@ -253,6 +276,11 @@ def traverse_windowed(
         win_len: ``[G]`` number of document rows; 0 skips the group.
         window: the JAX package's padded window size; accepted, and unused
             since a view needs no padding.
+        shard: a ``parallel.sharded_traversal.RowShard``: ``emb`` (and
+            ``row_scale``) hold this rank's rows of the row-sharded store,
+            and each group walks this rank's part of its range (a document
+            may span ranks; a rank that holds none of it still takes part
+            in every hop's collectives).
 
     Returns a TraversalResult over ``G*A`` anchors with GLOBAL row ids,
     identical (paths, scores, candidate records) to :func:`traverse` with
@@ -266,11 +294,14 @@ def traverse_windowed(
         ws, wl = int(ws), int(wl)
         a = anchor_idx[g]
         local = torch.where(a >= 0, a - ws, torch.full_like(a, -1))
+        lo, hi, part = ws, ws + wl, None
+        if shard is not None:       # this rank's rows of the document
+            lo, hi, part = shard.window(ws, wl, emb.shape[0])
         res = traverse(
-            emb[ws : ws + wl], local, query_vec[g], None,
-            None if row_scale is None else row_scale[ws : ws + wl],
+            emb[lo:hi], local, query_vec[g], None,
+            None if row_scale is None else row_scale[lo:hi],
             max_hops=max_hops, neighbor_k=neighbor_k, mode=mode,
-            approx_rt=approx_rt)
+            approx_rt=approx_rt, shard=part)
         parts.append(_to_global(res, ws))
     return TraversalResult(*(torch.cat(xs) for xs in zip(*parts)))
 
@@ -281,14 +312,23 @@ def emit_hits(
     query_vec: torch.Tensor,
     res: TraversalResult,
     row_scale: Optional[torch.Tensor] = None,
+    shard=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Re-score traversal paths as query·chunk similarities: every path
     element (anchor included) becomes a hit with similarity
-    ``inner(query, chunk)``.
+    ``inner(query, chunk)``.  With ``shard`` (a
+    ``parallel.sharded_traversal.RowShard`` over the store's frame) the
+    owner of each path row scores it and the similarities are summed over
+    the mesh, so every rank returns the single-device hits.
 
     Returns (rows [A, H+1] i32 with -1 for invalid, sims [A, H+1] f32).
     """
     rows = res.path
-    vecs = _gather_vecs(emb, row_scale, rows.clamp(min=0))        # [A, H+1, D]
+    if shard is None:
+        vecs = gather_rows_f32(emb, row_scale, rows.clamp(min=0))  # [A, H+1, D]
+    else:
+        vecs = shard.local_rows(emb, row_scale, rows)
     sims = torch.einsum("ad,ahd->ah", query_vec.float(), vecs)
+    if shard is not None:
+        sims = shard.sum(sims)
     return rows, torch.where(res.valid, sims, torch.zeros_like(sims))

@@ -234,16 +234,12 @@ def test_unported_options_raise(engines, rng, kw, item):
         te.search(_q_for(embs, 0, 0, rng), "金盘科技", cfg=SearchConfig(**kw))
 
 
-def test_unported_engine_features_raise(engines, rng):
-    """The sharded engine (hier=, tests/test_torch_sharded_*.py) serves
-    the basic method; traversal on a row-sharded store is not ported
-    (ROADMAP A.14f), and its IVF is built per shard."""
-    _, te, embs = engines
+def test_unported_engine_features_raise(engines):
+    """The sharded engine (hier=, tests/test_torch_sharded_*.py) builds its
+    IVF per shard (``parallel.build_sharded_ivf``), so ``build_ivf``
+    raises there; an IVF handed to an engine is the one it serves."""
+    _, te, _ = engines
     sharded = QueryEngine(te.index, te.meta, hier=object())
-    for method in ("ssg", "triangulation", "hybrid_expansion"):
-        with pytest.raises(NotImplementedError, match="A.14f"):
-            sharded.search(_q_for(embs, 0, 0, rng), "金盘科技",
-                           cfg=SearchConfig(method=method))
     with pytest.raises(NotImplementedError, match="build_sharded_ivf"):
         sharded.build_ivf(n_clusters=4, iters=2)
     ivf = QueryEngine(te.index, te.meta).build_ivf(n_clusters=4, iters=2)

@@ -174,7 +174,8 @@ def test_dryrun_at_four_ranks():
     """``python -m rag_challenge_2_tpu_torch.parallel.dryrun 4 --device
     cpu`` passes every check (dp x tp x sp dense and MoE, dp x pp, the
     sharded top-k, the sharded IVF at nprobe = K, the two-level merge and
-    the sharded engines) and prints one summary line."""
+    the sharded engines, hybrid_expansion among them) and prints one
+    summary line."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-m", "rag_challenge_2_tpu_torch.parallel.dryrun", "4",
@@ -186,6 +187,8 @@ def test_dryrun_at_four_ranks():
     for part in ("mesh data=2 model=2", "hierarchical merge parity: OK",
                  "hybrid dense+bm25+fusion sharded parity: OK"):
         assert part in lines[0], lines[0]
+    # the traversal-inclusive graph over the row-sharded store
+    assert int(lines[0].split(" rows + hybrid_expansion ")[1].split(" rows")[0]) > 0
     losses = [float(lines[0].split(f"{k} loss=")[1].split(",")[0])
               for k in ("dense", "moe", "pp")]
     assert np.isfinite(losses).all(), losses

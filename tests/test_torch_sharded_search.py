@@ -280,21 +280,25 @@ def test_engine_hier_search_many_equals_single_device(hier_engine, tmp_path):
         np.testing.assert_allclose(score, w.score.numpy(), rtol=TOL, atol=TOL)
 
 
-TRAVERSALS = ["ssg", "triangulation", "hybrid_expansion"]
+def test_select_lowest_rows_carries_payload_columns():
+    """Payload columns follow their candidates through the selection, ties
+    included: equal values go to the lower row with that row's payload,
+    and row-less candidates come last with theirs."""
+    from rag_challenge_2_tpu_torch.parallel.sharded_search import select_lowest_rows
 
-
-@pytest.fixture(scope="module")
-def traversal_errors(hier_engine):
-    path = hier_engine[2]
-    calls = [(np.ones((1, 64), np.float32), None, dict(method=m), None)
-             for m in TRAVERSALS]
-    return launch.run_ranks(torch_ranks.engine_cases, 2, "gloo", "cpu",
-                            (str(path), {"slice": 1, "device": 2}, False, None, calls))
-
-
-@pytest.mark.parametrize("method", TRAVERSALS)
-def test_traversal_on_a_row_sharded_store_raises(traversal_errors, method):
-    """The JAX package walks a row-sharded store through GSPMD; the port's
-    ranks hold only their rows, so traversal raises (ROADMAP A.14f)."""
-    kind, msg = traversal_errors[TRAVERSALS.index(method)]
-    assert kind == "NotImplementedError" and "A.14f" in msg and method in msg
+    vals = torch.tensor([[0.5, 0.9, 0.5, NEG_INF, 0.9, 0.7],
+                         [NEG_INF, 0.2, NEG_INF, 0.2, 0.3, 0.2]])
+    rows = torch.tensor([[40, 7, 3, -1, 2, 11], [-1, 9, 5, 1, 30, 4]], dtype=torch.int32)
+    pay_a = rows.float() * 10 + 1
+    pay_b = -rows.float()
+    v, r, a, b = select_lowest_rows(vals, rows, 5, (pay_a, pay_b))
+    assert r.tolist() == [[2, 7, 11, 3, 40], [30, 1, 4, 9, 5]]
+    np.testing.assert_array_equal(v.numpy(), np.float32([[0.9, 0.9, 0.7, 0.5, 0.5],
+                                                         [0.3, 0.2, 0.2, 0.2, NEG_INF]]))
+    np.testing.assert_array_equal(a.numpy(), r.float().numpy() * 10 + 1)
+    np.testing.assert_array_equal(b.numpy(), -r.float().numpy())
+    # without payload: the same selection, two values back
+    assert [x.tolist() for x in select_lowest_rows(vals, rows, 5)] == [v.tolist(), r.tolist()]
+    # a row-less candidate keeps its payload and comes after every row
+    v2, r2, a2 = select_lowest_rows(vals[:1], rows[:1], 6, (pay_a[:1],))
+    assert r2[0, -1] == -1 and a2[0, -1] == -9.0

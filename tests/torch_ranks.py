@@ -241,3 +241,49 @@ def ivf_build(dev, emb, n_clusters, q, k, nprobes):
     except ValueError as e:
         err = str(e)
     return every, found, err
+
+
+def _details_np(details):
+    """A search's details as numpy: TraversalResults as tuples of arrays."""
+    return {k: tuple(x.numpy() for x in v) if isinstance(v, tuple) else v.numpy()
+            for k, v in details.items()}
+
+
+def traversal_cases(dev, jobs):
+    """The traversal methods of ``QueryEngine(hier=...)`` over row-sharded
+    stores, each job on a mesh of its own ``axes`` over the world.  A job
+    is dict(index_path, axes, calls,
+    sparse=True, ivf_arrays=None, window0=False, many=None): for each call
+    (query embeddings, years, SearchConfig kwargs, BM25 texts) the
+    materialized results, the details (numpy) and ``materialize_details``;
+    ``many`` (list of query embeddings, years, kwargs, list of texts) runs
+    ``search_many`` and materializes each request.  Every rank must return
+    the same, bit for bit; rank 0 checks."""
+    from rag_challenge_2_tpu_torch.retrieval import SearchConfig
+
+    out = []
+    for job in jobs:
+        eng = _sharded_engine(job["index_path"], job["axes"], job.get("sparse", True),
+                              job.get("ivf_arrays"), job.get("window0", False))
+        got = []
+        for q, years, kw, texts in job["calls"]:
+            cfg = SearchConfig(**kw)
+            cands, details = eng.search(q, "金盘科技", "营业收入", years, cfg,
+                                        query_texts=texts, with_details=True)
+            got.append((eng.materialize(cands, cfg), _details_np(details),
+                        eng.materialize_details(details, cfg)))
+        many = None
+        if job.get("many") is not None:
+            qs, years, kw, texts = job["many"]
+            cfg = SearchConfig(**kw)
+            many = [eng.materialize(c, cfg) for c in eng.search_many(
+                qs, "金盘科技", "营业收入", years, cfg, query_texts_list=texts)]
+        out.append((got, many))
+    mine = repr([(r, m, [sorted((k, v.tobytes() if hasattr(v, "tobytes") else
+                                 tuple(x.tobytes() for x in v)) for k, v in d.items())])
+                 for got, many in out for r, d, m in got] + [o[1] for o in out])
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if any(e != mine for e in every):
+        raise AssertionError("the ranks of a sharded engine disagree")
+    return out

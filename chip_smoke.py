@@ -132,7 +132,7 @@ without printing a result:
     (c) 20 steps with the device teacher (``host_teacher=False``): K2
     launches per step, its scores against ``HostBM25Scorer`` (2e-5); (d)
     ``run_quality_eval`` (the default recipe at 5,000 steps, the ungated
-    ablation arms at 100 and the supervised stage at 500: the smoke's time
+    ablation arms at 50 and the supervised stage at 500: the smoke's time
     limit), every arm beside
     docs/ENCODER_QUALITY.json, gates: BM25 equal to the CPU's, the default
     recipe's hit@10 >= 0.55 and >= 0.2 above random init; K3 / K2 launches;
@@ -184,7 +184,25 @@ without printing a result:
     rank; (e)
     ``python -m rag_challenge_2_tpu_torch.parallel.dryrun 4 --device cuda``
     (K1 / K2 / K4 on every rank) and ``download-models`` in subprocesses.
-13. the last line: ``{"ok": true, "device": {...}}``.
+13. the chunked train step and data-parallel pretraining (right after
+    phase 12, on 9b's corpus, the full-width ``EncoderConfig``, batch 64 x
+    64): (a) ``step.chunked`` (one step captured as a CUDA graph, replayed
+    K = 8 times) against 8 eager steps from the same weights and batches,
+    f32 and bf16, with and without listwise targets: metrics and every
+    parameter bitwise, the first call's seconds (warm-up, capture, 8
+    replays), ms a step by CUDA events beside the bound, device kernels
+    and runtime calls a step, the busy share; the MoE encoder's step
+    captured too; (b) ``pretrain_encoder`` for 20 steps with
+    ``steps_per_dispatch`` 8 (chunks 8, 8, 4) against 1: history and
+    weights bitwise; (c) ``pretrain_data_parallel``'s rank program on a
+    gloo world of 4 ranks on the card (20 steps, the device teacher, f32
+    activations) against single-card ``pretrain_encoder``: the loss within
+    1e-3 relative at every step, 64 chunks' embeddings at cosine >=
+    0.9999, every rank's history and weights identical, K2's launches a
+    step on rank 0 (its first call against plain), ms a step by rank; (d)
+    ``pretrain_data_parallel`` on an NCCL world of one rank, 5 steps, held
+    the same way.
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Weights are random from ``--seed`` unless a
 ``save_params`` npz is given.
@@ -4161,9 +4179,9 @@ def phase10c_device_teacher(dev, texts, steps=20):
                 seconds=time.perf_counter() - t0)
 
 
-def phase10d_quality(dev, seed, ict_steps=5000, supervised_steps=500, ablation_steps=100):
+def phase10d_quality(dev, seed, ict_steps=5000, supervised_steps=500, ablation_steps=50):
     """``run_quality_eval`` on the card: the default recipe at its recorded
-    5,000 steps, the four ablation arms at 100 and the supervised stage at
+    5,000 steps, the four ablation arms at 50 and the supervised stage at
     500 (neither is gated; the smoke's time limit); every arm beside
     docs/ENCODER_QUALITY.json; gates: BM25 equals
     the CPU's, the default recipe >= 0.55 hit@10 and >= 0.2 above the
@@ -5243,6 +5261,7 @@ def rank12_train(dev, b):
     import dataclasses
 
     import torch
+    import torch.distributed as dist
 
     from rag_challenge_2_tpu_torch.models.encoder import Encoder
     from rag_challenge_2_tpu_torch.models.train import TrainConfig, init_training
@@ -5266,7 +5285,14 @@ def rank12_train(dev, b):
         grads.load_state_dict({n: t.grad for n, t in ref.named_parameters()})
         shard_params(grads, mesh)
         shard_params(ref, mesh)
+        # the compared step is the timed one (no repetition: the time limit)
+        _sync(dev)
+        dist.barrier()
+        t1 = time.perf_counter()
         got = step(q, p)
+        _sync(dev)
+        dist.barrier()
+        ms = (time.perf_counter() - t1) * 1e3
         # the cosine cannot see a scale (a gradient counted once a rank, or
         # 1/W of it): each tensor's norm against the reference's, and a
         # dense case's values within 1e-4 of the tensor's largest
@@ -5284,7 +5310,6 @@ def rank12_train(dev, b):
             sure = c.abs() >= SIGN_RULE * c.abs().max()
             off += int(((gp.detach() - rp.detach()).abs()[sure] > 1e-6).sum())
             compared += int(sure.sum())
-        _, ms = _rank_ms(dev, lambda: step(q, p), 1)
         out[name] = _every(dict(dev=str(dev), loss=got["loss"].item(),
                                 loss_ref=want["loss"].item(), aux=got["moe_aux"].item(),
                                 aux_ref=want["moe_aux"].item(), cos_min=cos_min,
@@ -5428,6 +5453,421 @@ def phase12_moe(dev, seed, ctx3, ctx9, p3, p9):
     return out
 
 
+# --------------------------------------------------------------- phase 13
+
+def chunk_texts(ctx9):
+    """The chunks' texts of phase 9b's corpus."""
+    from rag_challenge_2_tpu_torch.index.build import load_chunked_reports
+    from rag_challenge_2_tpu_torch.pipeline import PipelineConfig
+
+    return [c["text"] for r in load_chunked_reports(PipelineConfig(ctx9["root"]).documents_dir)
+            for c in r["content"]["chunks"]]
+
+
+P13_K = 8                    # 13a's chunk: steps a graph call replays
+P13_STEPS = 20               # 13b's and 13c's pretraining steps (13d: 5)
+P13_WORLD = 4
+
+
+def profile_runtime(fn, steps):
+    """One ``torch.profiler`` window over one ``fn()`` of ``steps`` train
+    steps (``fn`` has run before): ``(wall ms, summed device kernel ms,
+    device kernels a step, {runtime call: count a step})`` for the calls
+    that start device work (kernel and graph launches, copies, fills)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, dev_ms, calls = 0, 0.0, {}
+    for ev in prof.key_averages():
+        us = device_us(ev)
+        if us:
+            kernels += ev.count
+            dev_ms += us / 1e3
+        elif ev.key.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                                "cudaMemcpy", "cudaMemset")):
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count / steps
+    check(kernels > 0, "profiler window with no device time")
+    return wall_ms, dev_ms, kernels / steps, calls
+
+
+def same_modules(a, b):
+    """``(parameters that differ, elements that differ, max |diff|)`` of
+    two modules of one config."""
+    import torch
+
+    n_params = n_elems = 0
+    worst = 0.0
+    for x, y in zip(a.parameters(), b.parameters()):
+        if not torch.equal(x.detach(), y.detach()):
+            d = (x.detach().double() - y.detach().double()).abs()
+            n_params += 1
+            n_elems += int((d > 0).sum())
+            worst = max(worst, float(d.max()))
+    return n_params, n_elems, worst
+
+
+def p13_trainer(cfg, tc, dev, weights):
+    """``(module, step)`` as ``init_training`` builds them on ``dev``
+    (``step.chunked`` attached), from ``weights`` instead of a new draw."""
+    from rag_challenge_2_tpu_torch.models.encoder import Encoder
+    from rag_challenge_2_tpu_torch.models.train import (
+        make_chunked_train_step, make_optimizer, make_train_step)
+
+    module = Encoder(cfg)
+    module.load_state_dict(weights)
+    module.to(dev)
+    optimizer = make_optimizer(module.parameters(), tc)
+    step = make_train_step(module, optimizer, tc)
+    step.chunked = make_chunked_train_step(module, optimizer, tc)
+    return module, step
+
+
+def sample_chunk(texts, pre, dev, K, seed):
+    """``K`` batches of the pretraining sampler (``pre``), tokenized and
+    stacked on ``dev``: ``(q [K, B, L], p [K, B, L], targets [K, B, B] or
+    None)``."""
+    import numpy as np
+    import torch
+
+    from rag_challenge_2_tpu_torch.models.encoder import EncoderConfig, tokenize_batch
+    from rag_challenge_2_tpu_torch.models.pretrain import PairSampler
+
+    vb = EncoderConfig().vocab_bits
+    sampler = PairSampler(texts, pre, device=dev)
+    rng = np.random.default_rng(seed)
+    qs, ps, ts = [], [], []
+    for _ in range(K):
+        q, p, t = sampler.sample(rng)
+        qs.append(tokenize_batch(q, pre.max_len, vb))
+        ps.append(tokenize_batch(p, pre.max_len, vb))
+        ts.append(t)
+    to = lambda a: torch.from_numpy(np.stack(a)).to(dev)      # noqa: E731
+    return to(qs), to(ps), None if ts[0] is None else to(ts)
+
+
+def phase13a_graph(dev, seed, texts, K=P13_K):
+    """The chunked step as a CUDA graph against K eager steps from the same
+    weights and batches (full width, batch 64 x 64), f32 and bf16, with
+    and without listwise targets: metrics and every parameter bitwise;
+    the first call's seconds (3 warm-up steps, the capture, K replays);
+    ms a step by CUDA events, graph against eager; device kernels and
+    runtime calls a step and the busy share over back-to-back chunks on
+    batches sampled beforehand.  Then the MoE encoder's step captured."""
+    import dataclasses
+
+    import torch
+
+    from rag_challenge_2_tpu_torch.models.encoder import Encoder, EncoderConfig
+    from rag_challenge_2_tpu_torch.models.pretrain import PretrainConfig
+    from rag_challenge_2_tpu_torch.models.train import TrainConfig
+    from rag_challenge_2_tpu_torch.utils.timing import cuda_ms_train
+
+    log("== phase 13a: the chunked train step as a CUDA graph against eager steps")
+    t0 = time.perf_counter()
+    q, p, t = sample_chunk(texts, PretrainConfig(seed=seed, soft_target_weight=0.8),
+                           dev, K, seed)
+    tc = TrainConfig(lr=3e-4)
+    out = {}
+    for dtype, peak in ((torch.float32, F32_OPS_S), (torch.bfloat16, BF16_OPS_S)):
+        cfg = dataclasses.replace(EncoderConfig(), dtype=dtype)
+        init = Encoder(cfg)
+        init.init_weights(torch.Generator().manual_seed(seed))
+        for targets in (None, t):
+            name = ("f32" if dtype == torch.float32 else "bf16") + (
+                "+targets" if targets is not None else "")
+            runs = [p13_trainer(cfg, tc, dev, init.state_dict()) for _ in range(2)]
+            (emod, estep), (gmod, gstep) = runs
+
+            def eager():
+                ms = [estep(q[k], p[k], None if targets is None else targets[k])
+                      for k in range(K)]
+                return {n: torch.stack([m[n] for m in ms]) for n in ms[0]}
+
+            def graph():
+                return gstep.chunked(q, p, targets)
+
+            want = eager()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = graph()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            same_metrics = all(torch.equal(got[n], want[n]) for n in want)
+            diff = same_modules(gmod, emod)
+            check(same_metrics and diff[0] == 0,
+                  f"13a {name}: the graph's {K} steps differ from the eager steps: metrics "
+                  f"{got['loss'].tolist()} / {want['loss'].tolist()}, parameters "
+                  f"(tensors, elements, max) {diff}")
+            n_params = sum(x.numel() for x in gmod.parameters())
+            bnd = step_bound(q[0].cpu(), p[0].cpu(), cfg, n_params, peak)
+            # both have run once above: no warm-up; an eager chunk is long
+            g_ms = cuda_ms_train(graph, n=2, reps=3, warmup=0) / K
+            e_ms = cuda_ms_train(eager, n=1, reps=3, warmup=0) / K
+            gw, gd, gk, gcalls = profile_runtime(graph, K)
+            ew, ed, ek, ecalls = profile_runtime(eager, K)
+            res = dict(first_call_s=first_s, graph_ms=g_ms, eager_ms=e_ms,
+                       bound_ms=bnd[0], bound_by=bnd[1], params=n_params,
+                       loss=got["loss"].tolist(), graph_kernels=gk, eager_kernels=ek,
+                       graph_calls=gcalls, eager_calls=ecalls,
+                       graph_busy=gd / gw, eager_busy=ed / ew,
+                       graph_wall_ms=gw / K, eager_wall_ms=ew / K)
+            out[name] = res
+            log(f"13a {name}: {K} graph replays == {K} eager steps bitwise (metrics and "
+                f"{n_params} parameters); first call {first_s:.2f} s (3 warm-up steps, the "
+                f"capture, {K} replays); a step by CUDA events: graph {share(g_ms, bnd)}, "
+                f"eager {share(e_ms, bnd)}; device kernels a step {gk:.0f} / {ek:.0f}; "
+                f"runtime calls a step graph {fmt_calls(gcalls)}, eager {fmt_calls(ecalls)}; "
+                f"busy over a chunk {100 * gd / gw:.1f}% ({gw / K:.2f} ms a step by the "
+                f"host's clock) / {100 * ed / ew:.1f}% ({ew / K:.2f} ms)")
+            del runs, emod, gmod, estep, gstep
+            torch.cuda.empty_cache()
+    out["moe"] = phase13a_moe(dev, seed, q, p, tc)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def fmt_calls(calls):
+    return "{" + ", ".join(f"{k}: {v:g}" for k, v in sorted(calls.items())) + "}"
+
+
+def phase13a_moe(dev, seed, q, p, tc, K=4):
+    """The MoE encoder's chunked step (4 experts, f32 activations): its
+    forward reads nothing back to the host (``models/moe._counts``), so it
+    is captured too; the graph's K steps against K eager steps, metrics
+    and parameters bitwise."""
+    import dataclasses
+
+    import torch
+
+    from rag_challenge_2_tpu_torch.models.encoder import Encoder, EncoderConfig
+
+    cfg = dataclasses.replace(EncoderConfig(moe_experts=P12_EXPERTS), dtype=torch.float32)
+    init = Encoder(cfg)
+    init.init_weights(torch.Generator().manual_seed(seed))
+    (emod, estep), (gmod, gstep) = [p13_trainer(cfg, tc, dev, init.state_dict())
+                                    for _ in range(2)]
+    want = [estep(q[k], p[k]) for k in range(K)]
+    got = gstep.chunked(q[:K], p[:K])
+    same = all(torch.equal(got[n], torch.stack([m[n] for m in want])) for n in got)
+    diff = same_modules(gmod, emod)
+    check(same and diff[0] == 0, f"13a moe: the graph's {K} steps differ from the eager "
+          f"steps: loss {got['loss'].tolist()}, parameters {diff}")
+    log(f"13a moe ({P12_EXPERTS} experts, f32): {K} graph replays == {K} eager steps "
+        f"bitwise (metrics and {sum(x.numel() for x in gmod.parameters())} parameters); "
+        f"loss {got['loss'][0].item():.4f} -> {got['loss'][-1].item():.4f}")
+    return dict(loss=got["loss"].tolist(), moe_aux=got["moe_aux"].tolist())
+
+
+def phase13b_dispatch(dev, seed, texts, steps=P13_STEPS):
+    """``pretrain_encoder`` for ``steps`` steps with ``steps_per_dispatch``
+    8 (chunks 8, 8 and a partial 4, each a graph call) against 1 (single
+    steps): the history and the weights equal."""
+    import torch
+
+    from rag_challenge_2_tpu_torch.models.pretrain import PretrainConfig, pretrain_encoder
+
+    runs = {}
+    for spd in (P13_K, 1):
+        pre = PretrainConfig(steps=steps, seed=seed, steps_per_dispatch=spd)
+        (model, info), s = wall(lambda: pretrain_encoder(texts, pre_cfg=pre, device=dev,
+                                                         log_every=1), dev)
+        runs[spd] = (model, info, s)
+    (m8, h8, s8), (m1, h1, s1) = runs[P13_K], runs[1]
+    diff = same_modules(m8.module, m1.module)
+    check(h8 == h1 and diff[0] == 0,
+          f"13b: steps_per_dispatch {P13_K} against 1: history "
+          f"{[h['loss'] for h in h8['history']]} / {[h['loss'] for h in h1['history']]}, "
+          f"parameters {diff}")
+    log(f"13b: pretrain_encoder {steps} steps, steps_per_dispatch {P13_K} (chunks 8, 8, 4 "
+        f"through step.chunked) == 1 (single steps): history and every parameter bitwise; "
+        f"{steps / s8:.2f} against {steps / s1:.2f} steps/s; loss "
+        f"{h8['history'][0]['loss']:.4f} -> {h8['final']['loss']:.4f}")
+    del runs, m8, m1
+    torch.cuda.empty_cache()
+    return dict(steps_s_chunked=steps / s8, steps_s_single=steps / s1,
+                loss_first=h8["history"][0]["loss"], loss_last=h8["final"]["loss"])
+
+
+def rank13c_pretrain(dev, texts, kw, steps, t_start):
+    """13c on a rank of the gloo world: ``pretrain_data_parallel``'s rank
+    program (``parallel/pretrain.pretrain_rank``) with K2's launches
+    counted and its first call held against plain, and its
+    ``step.chunked`` calls timed; every rank's history, a digest of its
+    whole weights, K2 launches, ms a step, and the world's time split
+    (``t_start``: the parent's clock when it started the world)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    import rag_challenge_2_tpu_torch.models.pretrain as P
+    from rag_challenge_2_tpu_torch.parallel.pretrain import pretrain_rank
+
+    t_enter = time.time()
+    real, chunks = P.init_training, []
+
+    def init(*a, **k):
+        module, optimizer, step = real(*a, **k)
+        chunked = step.chunked
+
+        def timed(*x):
+            t0 = time.perf_counter()
+            out = chunked(*x)
+            _sync(dev)
+            chunks.append((time.time(), time.perf_counter() - t0))
+            return out
+
+        step.chunked = timed
+        return module, optimizer, step
+
+    zero_counts()
+    P.init_training = init
+    try:
+        with FirstCalls() as first:
+            sd, info = pretrain_rank(dev, texts, {"data": dist.get_world_size()}, kw)
+    finally:
+        P.init_training = real
+    t_trained = time.time()
+    k2 = read_counts()["span_gather"]
+    errs = check_first_calls(f"13c rank {dist.get_rank()}", first.calls)
+    digest = hashlib.sha256()
+    for k in sorted(sd):
+        digest.update(k.encode())
+        digest.update(sd[k].tobytes())
+    step_s = sum(d for _, d in chunks)
+    every = _every(dict(dev=str(dev), history=info["history"], digest=digest.hexdigest(),
+                        ms=step_s / steps * 1e3, k2=k2, errs=errs,
+                        start_s=t_enter - t_start,
+                        setup_s=chunks[0][0] - chunks[0][1] - t_enter,
+                        train_s=t_trained - t_enter, steps_s=step_s))
+    return sd, info, every
+
+
+def p13_reference(dev, texts, pre, cfg):
+    """The single-card ``pretrain_encoder`` a world's run is held against."""
+    from rag_challenge_2_tpu_torch.models.pretrain import pretrain_encoder
+
+    return pretrain_encoder(texts, enc_cfg=cfg, pre_cfg=pre, device=dev, log_every=1)
+
+
+def same_training(name, dev, texts, got, ref):
+    """A world's ``(model, info)`` against the single card's: the loss
+    within 1e-3 relative at every step, 64 chunks' embeddings at cosine
+    >= 0.9999."""
+    import numpy as np
+
+    (gm, gi), (rm, ri) = got, ref
+    gl = np.array([h["loss"] for h in gi["history"]])
+    rl = np.array([h["loss"] for h in ri["history"]])
+    check(gl.shape == rl.shape, f"{name}: {gl.shape} against {rl.shape} steps")
+    rel = float((np.abs(gl - rl) / np.abs(rl)).max())
+    check(rel <= 1e-3, f"{name}: losses {gl.tolist()} against {rl.tolist()}")
+    sample = texts[:: max(1, len(texts) // 64)][:64]
+    cos = (gm.embed(sample) * rm.embed(sample)).sum(1)
+    check(float(cos.min()) >= 0.9999, f"{name}: embedding cosine {cos.min()}")
+    return dict(loss_rel_max=rel, loss_first=float(gl[0]), loss_last=float(gl[-1]),
+                embed_cos_min=float(cos.min()))
+
+
+def p13_config(seed, steps=P13_STEPS):
+    """13c's and 13d's encoder (full width, f32 activations) and recipe
+    (the default, the device teacher)."""
+    import dataclasses
+
+    import torch
+
+    from rag_challenge_2_tpu_torch.models.encoder import EncoderConfig
+    from rag_challenge_2_tpu_torch.models.pretrain import PretrainConfig
+
+    return (dataclasses.replace(EncoderConfig(), dtype=torch.float32),
+            PretrainConfig(steps=steps, seed=seed, host_teacher=False))
+
+
+def phase13_pretrain(dev, seed, texts):
+    """Phase 13: the chunked train step on the card and data-parallel
+    pretraining (13a-13d) on ``texts`` (9b's chunks).  The worlds of 13c
+    and 13d run together, beside 13b."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from rag_challenge_2_tpu_torch.models.encoder import EmbeddingModel
+    from rag_challenge_2_tpu_torch.parallel import run_ranks
+    from rag_challenge_2_tpu_torch.parallel.pretrain import pretrain_data_parallel
+
+    log("== phase 13: the chunked train step and data-parallel pretraining")
+    t0 = time.perf_counter()
+    out = {"graph": phase13a_graph(dev, seed, texts)}
+    # 13c's gloo world and 13d's NCCL world run together, beside 13b and
+    # the single-card references (their ms a step show contention)
+    cfg, pre = p13_config(seed)
+    pre5 = dataclasses.replace(pre, steps=5)
+    with ThreadPoolExecutor(2) as ex:
+        t1_wall = time.time()
+        world = ex.submit(lambda: (run_ranks(
+            rank13c_pretrain, P13_WORLD, "gloo", dev.type,
+            (texts, dict(enc_cfg=cfg, pre_cfg=pre, log_every=1), pre.steps, t1_wall),
+            timeout=600), time.time()))
+        nccl = ex.submit(wall, lambda: pretrain_data_parallel(
+            texts, 1, "nccl", "cuda", timeout=600, enc_cfg=cfg, pre_cfg=pre5, log_every=1),
+            dev)
+        log("== phase 13b: pretrain_encoder, steps_per_dispatch 8 against 1 (beside the "
+            "worlds of 13c and 13d)")
+        out["dispatch"] = phase13b_dispatch(dev, seed, texts)
+        refs = {n: p13_reference(dev, texts, pr, cfg) for n, pr in (("c", pre), ("d", pre5))}
+        (sd, info, every), t_done = world.result()
+        world_s = t_done - t1_wall
+        got_d, nccl_s = nccl.result()
+    log(f"== phase 13c: pretrain_data_parallel's rank program, gloo world of {P13_WORLD} "
+        f"on the card, {pre.steps} steps (the world took {world_s:.1f} s)")
+    dp = EmbeddingModel(cfg, params={k: torch.from_numpy(v) for k, v in sd.items()},
+                        device=dev)
+    e0 = every[0]
+    check(all(e["history"] == e0["history"] and e["digest"] == e0["digest"] for e in every),
+          "13c: the ranks' histories or weights differ")
+    check(e0["history"] == info["history"], "13c: rank 0's history")
+    k2 = e0["k2"]
+    check(k2 > 0 and all(e["k2"] == 0 for e in every[1:]),
+          f"13c: K2 launches by rank {[e['k2'] for e in every]} (rank 0 samples)")
+    res = same_training("13c", dev, texts, (dp, info), refs["c"])
+    split = dict(start_s=max(e["start_s"] for e in every),
+                 setup_s=max(e["setup_s"] for e in every),
+                 steps_s=max(e["steps_s"] for e in every),
+                 end_s=t_done - max(e["train_s"] + e["start_s"] for e in every) - t1_wall)
+    res.update(world_s=world_s, ms_by_rank=[e["ms"] for e in every], k2_launches=k2,
+               k2_per_step_rank0=k2 / pre.steps, kernel_errs=e0["errs"], world_split=split)
+    out["dp"] = res
+    log(f"13c: backend gloo, world {P13_WORLD} (data {P13_WORLD}), rank devices "
+        f"{_devices(every)}: every rank's history and whole weights identical; loss within "
+        f"{res['loss_rel_max']:.2e} relative of the single card's at every step "
+        f"({res['loss_first']:.4f} -> {res['loss_last']:.4f}), 64 chunks' embeddings at "
+        f"cosine >= {res['embed_cos_min']:.6f}; K2 (the device teacher) {k2} launches on "
+        f"rank 0 = {k2 / pre.steps:.2f} a step, 0 elsewhere, its first call == plain; "
+        f"ms a step by rank " + ", ".join(f"{e['ms']:.1f}" for e in every)
+        + " (the step.chunked calls; beside 13b and 13d); the world's seconds: "
+        + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in split.items())
+        + f" (start: spawn to the rank program, set-up: to the first chunk, steps: "
+        f"step.chunked, end: the gather, digest and exit); {P11_ONE_CARD}")
+    log("== phase 13d: pretrain_data_parallel, an NCCL world of 1 rank, 5 steps")
+    res = same_training("13d", dev, texts, got_d, refs["d"])
+    res.update(world_s=nccl_s)
+    out["nccl"] = res
+    log(f"13d: backend nccl, world 1: loss within {res['loss_rel_max']:.2e} relative of the "
+        f"single card's at every step, embeddings at cosine >= {res['embed_cos_min']:.6f}; "
+        f"the world started, trained and ended in {nccl_s:.1f} s")
+    del dp, refs, got_d
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--params", default=None,
@@ -5477,6 +5917,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     p10 = phase10_training(dev, args.seed, work, ctx9)
     p12 = phase12_moe(dev, args.seed, ctx3, ctx9, p3, p9)
+    p13 = phase13_pretrain(dev, args.seed, chunk_texts(ctx9))
     del ctx9
     torch.cuda.empty_cache()
     p7 = dict(hops=phase7a_hop_shapes(dev, gen), deploy=phase7b_deploy(dev, ctx3),
@@ -5496,7 +5937,7 @@ def main(argv=None):
     log("summary " + json.dumps({"phase3": p3, "phase4": p4, "phase5": p5,
                                  "phase6": p6, "phase7": p7, "phase8": p8, "phase9": p9,
                                  "phase10": p10, "phase11": p11, "phase12": p12,
-                                 "kernels": k}))
+                                 "phase13": p13, "kernels": k}))
     qa = p8["launches"]
     hyb = p7["deploy"]["hybrid_expansion+bm25"]["launches_per_request"]
     big = [c for c in k["k1"] if c["N"] == 250_000 and c["dtype"] == "bfloat16"][0]
@@ -5509,7 +5950,8 @@ def main(argv=None):
             (f"10{part} {name}", v) for part, ph in (("b", "auto_pretrain"),
                                                      ("c", "device_teacher"),
                                                      ("d", "quality"))
-            for name, v in p10[ph]["kernel_errs"].items()]
+            for name, v in p10[ph]["kernel_errs"].items()] + [
+            (f"13c {name}", v) for name, v in p13["dp"]["kernel_errs"].items()]
         return max([v for key, v in errs if key.endswith(" " + kernel)] or [0.0])
 
     # phase 10: a pipeline question over the auto-pretrained index (10b),
@@ -5566,11 +6008,13 @@ def main(argv=None):
          "launches_per_pretrained_pipeline_question": p10q["span_gather"],
          # the device teacher's mining (host_teacher=False)
          "launches_per_training_step": p10["device_teacher"]["k2_per_step"],
+         # 13c: a data-parallel pretraining step, on rank 0 (it samples)
+         "launches_per_dp_pretraining_step": p13["dp"]["k2_per_step_rank0"],
          "launches_per_quality_eval": p10eval["span_gather"],
          "launches_per_sharded_request": p11d["span_gather"],
          "launches_per_moe_request": p12b["span_gather"],
          "launches_in_dryrun": p12e["span_gather"],
-         "max_abs_err": 0.0,
+         "max_abs_err": p9err("span_gather"),
          # the deployment's BM25 calls (phase 3): G = 8 x 64, W = max_postings
          "shape": f"G={p3['k2']['G']} W={p3['k2']['W']} arrays={p3['k2']['arrays']}",
          "ms": p3["k2"]["ms"], "plain_ms": p3["k2"]["plain_ms"],

@@ -70,6 +70,16 @@ def _positions(e1: torch.Tensor, e2: torch.Tensor, E: int):
     return p1, p2
 
 
+def _counts(e: torch.Tensor, E: int) -> torch.Tensor:
+    """Tokens per expert, ``torch.bincount(e, minlength=E)`` bitwise, with
+    its size fixed by ``E``: a bincount on the card reads its input's
+    largest value back to size its output, which stalls the host and
+    cannot be captured in a CUDA graph (``models/train.py``'s chunked
+    step)."""
+    return torch.zeros(E, dtype=torch.long, device=e.device).scatter_add_(
+        0, e, torch.ones_like(e))
+
+
 def _aux(frac: torch.Tensor, mean_prob: torch.Tensor) -> torch.Tensor:
     return frac.shape[0] * torch.sum(frac * mean_prob)
 
@@ -92,7 +102,7 @@ def top2_dispatch(router_logits: torch.Tensor, capacity: int):
 
     d1, c1 = one_expert(e1, p1, g1)
     d2, c2 = one_expert(e2, p2, g2)
-    frac = torch.bincount(e1, minlength=E).to(probs.dtype) / T
+    frac = _counts(e1, E).to(probs.dtype) / T
     return d1 + d2, c1 + c2, _aux(frac, probs.mean(dim=0))
 
 
@@ -172,5 +182,5 @@ class MoEFFN(nn.Module):
         flat = torch.cat([expert_out.reshape(E * C, D), expert_out.new_zeros(1, D)])
         out = (g1.to(dt).float()[:, None] * flat.index_select(0, s1[mine]).float()
                + g2.to(dt).float()[:, None] * flat.index_select(0, s2[mine]).float()).to(dt)
-        frac = torch.bincount(e1, minlength=E).float() / T
+        frac = _counts(e1, E).float() / T
         return out.reshape(B, L, D), _aux(frac, prob_sum / T)

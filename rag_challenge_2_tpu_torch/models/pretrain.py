@@ -37,10 +37,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
 from ..ops.bm25 import (
     HostBM25Scorer, bm25_scores, encode_queries, encode_queries_host)
+from ..parallel.mesh import shard_state_dict, whole_state_dict
 from .encoder import (
     EmbeddingModel, EncoderConfig, from_jax_params, load_params_npz,
     to_jax_params, tokenize_batch)
@@ -129,10 +131,11 @@ class PretrainConfig:
     # the pairs that teach synonymy; idf weighting oversamples them
     # without knowing anything about the eval.  0 = uniform.
     idf_sampling: float = 0.0
-    # steps whose metrics are stacked before one host read: the loop
-    # never waits for the device inside a group of K steps, so the host
-    # samples step i+1 while the device runs step i.  The update
-    # trajectory does not depend on K (same sampler stream, same order).
+    # steps sampled, uploaded and trained as one chunk (one
+    # step.chunked call: a CUDA graph replayed K times on the card); the
+    # metrics are read after the loop, so the host samples chunk c+1 while
+    # the device runs chunk c.  The update trajectory does not depend on K
+    # (same sampler stream, same order, the same arithmetic).
     steps_per_dispatch: int = 250
     # mining-teacher placement: the host scorer (ops/bm25.HostBM25Scorer)
     # matches the device's bm25_scores to f32 rounding, so near-tied
@@ -482,6 +485,7 @@ def pretrain_encoder(
     log_every: int = 50,
     teacher_score_fn=None,
     init_params: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Tuple[EmbeddingModel, Dict]:
     """Train from scratch on the corpus, on ``device`` (the card unless the
     caller names another); returns the ready EmbeddingModel and
@@ -492,51 +496,103 @@ def pretrain_encoder(
     (:meth:`Encoder.init_weights`), or from ``init_params`` (an
     :class:`Encoder` state dict, e.g. ``from_jax_params`` of a saved
     npz) for a warm start.  ``teacher_score_fn`` swaps the BM25 mining
-    teacher for a custom one (:class:`PairSampler`).  The host samples
-    and tokenizes step i+1 while the device runs step i: the loop reads
-    the device only once every ``pre_cfg.steps_per_dispatch`` steps."""
+    teacher for a custom one (:class:`PairSampler`).
+
+    As the reference's loop does, the host samples and tokenizes each
+    chunk of ``K = pre_cfg.steps_per_dispatch`` steps, uploads it in one
+    copy and trains it in one ``step.chunked`` call (one CUDA graph replay
+    a step on the card, ``models/train.make_chunked_train_step``); a last
+    chunk of one step takes the single step.  The metrics are read once,
+    after the loop, so the host samples chunk c + 1 while the device runs
+    chunk c.  The history and the weights do not depend on K.
+
+    ``mesh`` (``parallel/mesh.make_mesh``, with ``data`` and optionally
+    ``model`` or ``pipe`` axes) trains on a world of ranks, every rank
+    calling this with its own ``device``: rank 0 samples each chunk and
+    broadcasts it, every rank runs the mesh's step on the global batch
+    (``models/train.init_training(mesh=)``: rows split over ``data``,
+    in-batch negatives over the global batch), and every rank returns the
+    same history and the whole weights.  ``mesh=None`` on the card with
+    more than one card visible trains data-parallel over all of them
+    (``parallel/pretrain.pretrain_data_parallel``), as the reference's
+    default mesh spans every device; with one card, on that card."""
     enc_cfg = enc_cfg or EncoderConfig()
     device = resolve_device(device)
+    if mesh is None and device.type == "cuda" and torch.cuda.device_count() > 1:
+        from ..parallel.pretrain import pretrain_data_parallel
+
+        return pretrain_data_parallel(
+            chunk_texts, torch.cuda.device_count(), "nccl", "cuda", enc_cfg=enc_cfg,
+            pre_cfg=pre_cfg, train_cfg=train_cfg, log_every=log_every,
+            teacher_score_fn=teacher_score_fn, init_params=init_params)
+    B = pre_cfg.batch_size
+    if mesh is not None and "data" in mesh.mesh_dim_names:
+        dp = mesh.size(mesh.mesh_dim_names.index("data"))
+        if B % dp:
+            raise ValueError(f"a batch of {B} rows does not divide over {dp} data shards")
     module, _, step = init_training(
-        enc_cfg, train_cfg, device, torch.Generator().manual_seed(pre_cfg.seed))
+        enc_cfg, train_cfg, device, torch.Generator().manual_seed(pre_cfg.seed), mesh)
     if init_params is not None:
-        module.load_state_dict(init_params)
+        module.load_state_dict(init_params if mesh is None else
+                               shard_state_dict(init_params, mesh, enc_cfg.n_heads))
+    # on a world only rank 0 samples: four samplers on one host's cores
+    # would only contend (the sampler sets the loop's pace)
+    samples = mesh is None or dist.get_rank() == 0
     rng = np.random.default_rng(pre_cfg.seed)
-    sampler = PairSampler(chunk_texts, pre_cfg, teacher_score_fn=teacher_score_fn,
-                          device=device)
+    sampler = (PairSampler(chunk_texts, pre_cfg, teacher_score_fn=teacher_score_fn,
+                           device=device) if samples else None)
     # token sequences must stay inside the encoder's position table
     max_len = min(pre_cfg.max_len, enc_cfg.max_len)
     K = max(1, int(pre_cfg.steps_per_dispatch))
+    # known on every rank before any broadcast: the config decides it
+    with_targets = pre_cfg.soft_target_weight > 0
     pin = device.type == "cuda"
 
-    def host(a: np.ndarray) -> torch.Tensor:
+    def feed(a: np.ndarray) -> torch.Tensor:
+        """A host array on ``device`` (through pinned memory: an
+        asynchronous copy); on a world, rank 0's array on every rank."""
         t = torch.from_numpy(a)
-        return t.pin_memory() if pin else t    # an asynchronous copy
+        if pin:
+            t = t.pin_memory()
+        if mesh is not None and mesh.device_type == "cuda":   # NCCL: on the card
+            t = t.to(device, non_blocking=True)
+            dist.broadcast(t, 0)
+        elif mesh is not None:                                # gloo: on the host
+            dist.broadcast(t, 0)
+        return t.to(device, non_blocking=True)
 
+    chunks: List[Tuple[int, Dict[str, torch.Tensor]]] = []
+    i = 0
+    while i < pre_cfg.steps:
+        n = min(K, pre_cfg.steps - i)
+        tokens = np.empty((2, n, B, max_len), np.int32)
+        targets = np.empty((n, B, B), np.float32) if with_targets else None
+        if samples:
+            for k in range(n):
+                q_texts, p_texts, t = sampler.sample(rng)
+                tokens[0, k] = tokenize_batch(q_texts, max_len, enc_cfg.vocab_bits)
+                tokens[1, k] = tokenize_batch(p_texts, max_len, enc_cfg.vocab_bits)
+                if with_targets:
+                    targets[k] = t
+        qd = feed(tokens)
+        t = None if targets is None else feed(targets)
+        if n > 1:
+            metrics = step.chunked(qd[0], qd[1], t)
+        else:
+            metrics = {k: v[None] for k, v in
+                       step(qd[0, 0], qd[1, 0], None if t is None else t[0]).items()}
+        chunks.append((i, metrics))
+        i += n
     history: List[Dict] = []
-    pending: List[Tuple[int, Dict[str, torch.Tensor]]] = []
-
-    def read_pending() -> None:
-        if not pending:
-            return
-        both = torch.stack([torch.stack([m["loss"], m["accuracy"]])
-                            for _, m in pending]).cpu().numpy()
-        for (s_idx, _), (loss, acc) in zip(pending, both):
+    if chunks:
+        both = torch.cat([torch.stack([m["loss"], m["accuracy"]]) for _, m in chunks],
+                         dim=1).cpu().numpy()
+        for s_idx, (loss, acc) in enumerate(both.T):
             if s_idx % log_every == 0 or s_idx == pre_cfg.steps - 1:
                 history.append({"step": s_idx, "loss": float(loss),
                                 "accuracy": float(acc)})
-        pending.clear()
-
-    for i in range(pre_cfg.steps):
-        q_texts, p_texts, targets = sampler.sample(rng)
-        q = host(tokenize_batch(q_texts, max_len, enc_cfg.vocab_bits))
-        p = host(tokenize_batch(p_texts, max_len, enc_cfg.vocab_bits))
-        t = None if targets is None else host(targets.astype(np.float32))
-        pending.append((i, step(q, p, t)))
-        if len(pending) == K:
-            read_pending()
-    read_pending()
-    model = EmbeddingModel(enc_cfg, params=module.state_dict(), device=device)
+    params = module.state_dict() if mesh is None else whole_state_dict(module, mesh)
+    model = EmbeddingModel(enc_cfg, params=params, device=device)
     return model, {"history": history, "final": history[-1] if history else {}}
 
 

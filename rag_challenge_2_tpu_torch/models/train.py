@@ -30,6 +30,10 @@ the axes its parameter is replicated over, so each counts once.
 A step launches its work and returns its metrics as 0-d tensors on the
 device: nothing in it waits for the device (but a mesh's collectives), so
 the host can prepare the next batch while the device runs this one.
+
+``step.chunked`` (:func:`make_chunked_train_step`) runs K steps from one
+call, the counterpart of the reference's ``lax.scan`` of K steps: on the
+card, one train step captured once as a CUDA graph and replayed K times.
 """
 
 from __future__ import annotations
@@ -95,13 +99,37 @@ def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
 def make_optimizer(params, tc: TrainConfig) -> torch.optim.AdamW:
     """optax's ``adamw`` over every parameter (biases, LayerNorms and
     embeddings included, as with no mask): betas (0.9, 0.999), eps 1e-8,
-    decoupled weight decay; one fused update on the card.  Its learning
-    rate is set before each update from :func:`lr_schedule`
-    (:func:`make_train_step` does it)."""
+    decoupled weight decay.  Its learning rate is set before each update
+    from :func:`lr_schedule` (:func:`make_train_step` does it).
+
+    On the card it is one fused, capturable update whose learning rate is
+    a 0-d f32 tensor on the card: a step captured as a CUDA graph
+    (:func:`make_chunked_train_step`) then reads the rate each replay is
+    given, and eager and captured steps run the same kernels."""
     params = list(params)
-    return torch.optim.AdamW(params, lr=lr_schedule(tc)(0), betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=tc.weight_decay,
-                             fused=bool(params) and params[0].is_cuda)
+    lr = lr_schedule(tc)(0)
+    on_card = bool(params) and params[0].is_cuda
+    if on_card:
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=tc.weight_decay, fused=on_card,
+                             capturable=on_card)
+
+
+def _next_update(optimizer: torch.optim.Optimizer, schedule: Callable[[int], float]) -> None:
+    """Set the learning rate of ``optimizer``'s next update from the count
+    of updates it has made, and count that update.  The count lives on the
+    optimizer (as optax keeps it in its state), so single and chunked
+    steps over one optimizer follow one schedule.  A tensor rate is filled
+    on its device (no host wait)."""
+    count = getattr(optimizer, "updates", 0)
+    lr = schedule(count)
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+    optimizer.updates = count + 1
 
 
 def contrastive_loss(
@@ -198,6 +226,38 @@ class Pipelined:
         return (e, torch.zeros((), device=e.device)) if return_aux else e
 
 
+METRICS = ("loss", "accuracy", "moe_aux")
+
+
+def _update_fn(module: Encoder, optimizer: torch.optim.Optimizer, tc: TrainConfig, mesh):
+    """``update(q, d, targets) -> metrics``: one update of ``module`` on
+    token batches already on its device, at the learning rate the
+    optimizer holds (the step's work without the transfer and the rate)."""
+    if mesh is None:
+        encode, ranks = module, 1
+    elif "pipe" in mesh.mesh_dim_names:
+        encode, ranks = Pipelined(module, mesh, tc.pp_microbatches), mesh.size()
+    else:
+        encode, ranks = GlobalBatch(module, mesh), mesh.size()
+
+    def update(q_tokens, d_tokens, targets):
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = contrastive_loss(encode, q_tokens, d_tokens, tc.temperature,
+                                         tc.moe_aux_weight, targets)
+        (loss / ranks).backward()
+        if mesh is not None:
+            sum_grads(module.named_parameters(), mesh, encoder_param_spec)
+        optimizer.step()
+        return metrics
+
+    return update
+
+
+def _on_device(module: Encoder, *xs):
+    dev = next(module.parameters()).device
+    return [None if x is None else x.to(dev, non_blocking=True) for x in xs]
+
+
 def make_train_step(module: Encoder, optimizer: torch.optim.Optimizer,
                     tc: TrainConfig, mesh=None):
     """The train step: ``step(q_tokens, d_tokens[, targets]) -> metrics``
@@ -211,35 +271,126 @@ def make_train_step(module: Encoder, optimizer: torch.optim.Optimizer,
     ``module`` is this rank's shard (``parallel/mesh.shard_params``), and
     the metrics are the global batch's, the same on every rank."""
     schedule = lr_schedule(tc)
-    updates = 0
-    if mesh is None:
-        encode, ranks = module, 1
-    elif "pipe" in mesh.mesh_dim_names:
-        encode, ranks = Pipelined(module, mesh, tc.pp_microbatches), mesh.size()
-    else:
-        encode, ranks = GlobalBatch(module, mesh), mesh.size()
+    update = _update_fn(module, optimizer, tc, mesh)
 
     def step(q_tokens, d_tokens, targets=None) -> Dict[str, torch.Tensor]:
-        nonlocal updates
-        dev = next(module.parameters()).device
-        q_tokens = q_tokens.to(dev, non_blocking=True)
-        d_tokens = d_tokens.to(dev, non_blocking=True)
-        if targets is not None:
-            targets = targets.to(dev, non_blocking=True)
+        q_tokens, d_tokens, targets = _on_device(module, q_tokens, d_tokens, targets)
         module.train()
-        optimizer.zero_grad(set_to_none=True)
-        loss, metrics = contrastive_loss(encode, q_tokens, d_tokens, tc.temperature,
-                                         tc.moe_aux_weight, targets)
-        (loss / ranks).backward()
-        if mesh is not None:
-            sum_grads(module.named_parameters(), mesh, encoder_param_spec)
-        for group in optimizer.param_groups:
-            group["lr"] = schedule(updates)
-        optimizer.step()
-        updates += 1
-        return metrics
+        _next_update(optimizer, schedule)
+        return update(q_tokens, d_tokens, targets)
 
     return step
+
+
+class _StepGraph:
+    """One train step captured as a CUDA graph on static ``[B, L]`` inputs.
+
+    Capturing needs warm-up steps first (the optimizer's state, cuBLAS's
+    workspaces, on a side stream); they move the weights, so the
+    parameters and the optimizer's state are copied before them and put
+    back, into the same storages the graph holds, after the capture.  The
+    gradients are dropped before the capture, so the captured backward
+    writes them into the graph's own memory on every replay (no adds to a
+    stale gradient).  The learning rate is the optimizer's tensor, filled
+    before each replay."""
+
+    WARMUP = 3
+
+    def __init__(self, optimizer: torch.optim.Optimizer, update, q, d, targets):
+        for group in optimizer.param_groups:
+            if not (group["capturable"] and isinstance(group["lr"], torch.Tensor)):
+                raise ValueError("a captured step needs a capturable optimizer with a "
+                                 "tensor learning rate (models/train.make_optimizer)")
+        self.params = [p for group in optimizer.param_groups for p in group["params"]]
+        self.inputs = [None if x is None else x.clone() for x in (q, d, targets)]
+        weights = [p.detach().clone() for p in self.params]
+        state = [{k: v.clone() for k, v in optimizer.state.get(p, {}).items()}
+                 for p in self.params]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                update(*self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        optimizer.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            metrics = update(*self.inputs)
+            self.metrics = torch.stack([metrics[k] for k in METRICS])
+        self.grads = [p.grad for p in self.params]
+        with torch.no_grad():
+            for p, w, before in zip(self.params, weights, state):
+                p.copy_(w)
+                for k, v in optimizer.state[p].items():
+                    if k in before:
+                        v.copy_(before[k])
+                    else:                    # the fresh state Adam starts from
+                        v.zero_()
+
+    def run(self, q, d, targets, next_update) -> Dict[str, torch.Tensor]:
+        """Replay the step once for each slice ``k`` of ``[K, ...]`` inputs:
+        device-to-device copies into the static inputs, the learning rate
+        (``next_update``), the replay, the metrics into slot ``k``."""
+        out = torch.empty(len(METRICS), q.shape[0], device=q.device)
+        for k in range(q.shape[0]):
+            for static, x in zip(self.inputs, (q, d, targets)):
+                if x is not None:
+                    static.copy_(x[k])
+            next_update()
+            self.graph.replay()
+            out[:, k].copy_(self.metrics)
+        for p, g in zip(self.params, self.grads):
+            p.grad = g
+        return dict(zip(METRICS, out))
+
+
+def make_chunked_train_step(module: Encoder, optimizer: torch.optim.Optimizer,
+                            tc: TrainConfig, mesh=None):
+    """K train steps from one call: ``multi(q_tokens [K, B, L], d_tokens
+    [K, B, L][, targets [K, B, B]]) -> {"loss", "accuracy", "moe_aux"}``,
+    each ``[K]`` on the device, with nothing waiting for the device.  The
+    updates, their order and the learning rate of each equal K calls of
+    :func:`make_train_step`'s step over the same ``optimizer``, whose count
+    of updates both share (a chunk after single steps, or single steps
+    after a chunk, continue one schedule).
+
+    The reference's counterpart is a ``lax.scan`` of K steps in one device
+    program.  Here, on the card and with ``mesh=None``, the step is
+    captured once as a CUDA graph for each ``(B, L, targets present)`` and
+    replayed K times (:class:`_StepGraph`): one graph launch a step, and a
+    few copies, against the eager step's hundreds of launches; nothing
+    waits for the device inside a chunk.  A capture or replay that fails
+    raises.
+
+    The plain version runs K eager steps on slices of the chunk, uploaded
+    once; it is what runs on the CPU, and under a mesh, whose gloo
+    collectives run on the host and cannot be captured (capturing NCCL
+    collectives is later work).  On the card a graph's replays equal the
+    eager steps bitwise: the same kernels on the same inputs."""
+    schedule = lr_schedule(tc)
+    update = _update_fn(module, optimizer, tc, mesh)
+    graphs: Dict[tuple, _StepGraph] = {}
+
+    def multi(q_tokens, d_tokens, targets=None) -> Dict[str, torch.Tensor]:
+        q_tokens, d_tokens, targets = _on_device(module, q_tokens, d_tokens, targets)
+        module.train()
+        K = q_tokens.shape[0]
+        slices = [(q_tokens[k], d_tokens[k], None if targets is None else targets[k])
+                  for k in range(K)]
+        if q_tokens.device.type != "cuda" or mesh is not None:
+            out = []
+            for q, d, t in slices:
+                _next_update(optimizer, schedule)
+                out.append(update(q, d, t))
+            return {k: torch.stack([m[k] for m in out]) for k in METRICS}
+        key = (tuple(q_tokens.shape[1:]), q_tokens.dtype, tuple(d_tokens.shape[1:]),
+               d_tokens.dtype, targets is not None)
+        if key not in graphs:
+            graphs[key] = _StepGraph(optimizer, update, *slices[0])
+        return graphs[key].run(q_tokens, d_tokens, targets,
+                               lambda: _next_update(optimizer, schedule))
+
+    return multi
 
 
 def init_training(
@@ -256,7 +407,8 @@ def init_training(
     (called on every rank of a world) each rank keeps its shard of the
     weights and the step is the mesh's (:func:`make_train_step`); a mesh
     with a ``pipe`` axis runs the block stack through the GPipe schedule.
-    Returns ``(module, optimizer, step)``."""
+    Returns ``(module, optimizer, step)``; ``step.chunked`` is its K-step
+    form (:func:`make_chunked_train_step`), as in the reference."""
     device = resolve_device(device)
     module = Encoder(cfg, sequence_parallel=tc.sequence_parallel)
     module.init_weights(generator if generator is not None
@@ -265,4 +417,6 @@ def init_training(
         shard_params(module, mesh)
     module.to(device)
     optimizer = make_optimizer(module.parameters(), tc)
-    return module, optimizer, make_train_step(module, optimizer, tc, mesh)
+    step = make_train_step(module, optimizer, tc, mesh)
+    step.chunked = make_chunked_train_step(module, optimizer, tc, mesh)
+    return module, optimizer, step

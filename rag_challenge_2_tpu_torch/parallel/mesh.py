@@ -13,8 +13,9 @@ The training half: :func:`encoder_param_spec` is the reference's
 Megatron split of the encoder's parameters over ``model`` (attention
 heads, the MLP's hidden features, the experts and the embedding features;
 everything else replicated), and :func:`shard_params` keeps this rank's
-shard of each parameter.  GSPMD pads a dimension its axis does not
-divide; here that raises.
+shard of each parameter (:func:`shard_state_dict` of a whole state dict);
+:func:`whole_state_dict` gathers the shards back.  GSPMD pads a dimension
+its axis does not divide; here that raises.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from .collectives import _gathered
 
 Axes = Union[str, Sequence[str]]
 
@@ -123,6 +126,25 @@ def encoder_param_spec(name: str, tensor: torch.Tensor) -> Tuple[Optional[str], 
     return (None,) * nd
 
 
+def _shard(name: str, t: torch.Tensor, mesh: DeviceMesh, head: int) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``t`` of parameter ``name``
+    (``head``: attention's head width, the unit its split keeps whole)."""
+    names = mesh.mesh_dim_names
+    unit = head if any(f".{a}." in name for a in ("query", "key", "value", "out")) else 1
+    for dim, axis in enumerate(encoder_param_spec(name, t)):
+        if axis is None or axis not in names:
+            continue
+        n = mesh.size(names.index(axis))
+        if (t.shape[dim] // unit) % n:
+            raise ValueError(
+                f"{name}: dim {dim} of {t.shape[dim] // unit} "
+                f"{'heads' if unit > 1 else 'elements'} does not divide over "
+                f"the {n} shards of mesh axis {axis!r}")
+        per = t.shape[dim] // n
+        t = t.narrow(dim, mesh.get_local_rank(axis) * per, per)
+    return t
+
+
 def shard_params(module: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
     """Keep this rank's shard of each parameter of ``module`` (an encoder
     holding the full weights) per :func:`encoder_param_spec`, in place, and
@@ -130,24 +152,36 @@ def shard_params(module: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
     the mesh lacks degrades to replication (a ``data x pipe`` mesh has no
     ``model`` axis); a dimension its axis does not divide raises
     ``ValueError`` naming the parameter."""
-    names = mesh.mesh_dim_names
     head = module.cfg.d_model // module.cfg.n_heads
     with torch.no_grad():
         for name, p in module.named_parameters():
-            part = p.data
-            # attention splits whole heads (the reference's [.., heads, head_dim])
-            unit = head if any(f".{a}." in name for a in ("query", "key", "value", "out")) else 1
-            for dim, axis in enumerate(encoder_param_spec(name, p)):
-                if axis is None or axis not in names:
-                    continue
-                n = mesh.size(names.index(axis))
-                if (part.shape[dim] // unit) % n:
-                    raise ValueError(
-                        f"{name}: dim {dim} of {part.shape[dim] // unit} "
-                        f"{'heads' if unit > 1 else 'elements'} does not divide over "
-                        f"the {n} shards of mesh axis {axis!r}")
-                per = part.shape[dim] // n
-                part = part.narrow(dim, mesh.get_local_rank(axis) * per, per)
-            p.data = part.contiguous()
+            p.data = _shard(name, p.data, mesh, head).contiguous()
     module.mesh = mesh
     return module
+
+
+def shard_state_dict(sd: Dict[str, torch.Tensor], mesh: DeviceMesh,
+                     n_heads: int) -> Dict[str, torch.Tensor]:
+    """This rank's shards of a whole encoder state dict (``n_heads``
+    attention heads), for ``load_state_dict`` into a module that
+    :func:`shard_params` split."""
+    head = sd["tok_embed"].shape[1] // n_heads
+    return {name: _shard(name, t, mesh, head) for name, t in sd.items()}
+
+
+def whole_param(name: str, t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """The whole of a sharded parameter (or of its gradient) ``t`` named
+    ``name``: its shards all-gathered over each axis its spec splits it
+    over, in shard order.  Called on every rank of the mesh."""
+    for dim, axis in enumerate(encoder_param_spec(name, t)):
+        if axis is not None and axis in mesh.mesh_dim_names:
+            t = _gathered(t, mesh.get_group(axis), dim)
+    return t
+
+
+def whole_state_dict(module: torch.nn.Module, mesh: DeviceMesh) -> Dict[str, torch.Tensor]:
+    """The whole weights of a module that :func:`shard_params` split (the
+    inverse of :func:`shard_state_dict`), the same on every rank: a
+    ``data`` or ``pipe`` axis keeps every parameter whole already, a
+    ``model`` axis's shards are gathered.  Called on every rank."""
+    return {name: whole_param(name, t, mesh) for name, t in module.state_dict().items()}

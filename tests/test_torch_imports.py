@@ -144,6 +144,18 @@ if __name__ == "__main__":
     r = launch.run_ranks(torch_train_ranks.init_world, 2, "gloo", "cpu",
                          (cfg, dict(sequence_parallel=True), {"data": 2}, 0))
     assert r["every"][0] == r["every"][1]
+    # data-parallel pretraining's rank programs: 2 steps on data 2, and on
+    # data 1 x model 2
+    from rag_challenge_2_tpu_torch.models import EncoderConfig, PretrainConfig
+    from rag_challenge_2_tpu_torch.parallel.pretrain import pretrain_data_parallel
+    texts = [f"公司{i}在2023年的营业收入为{i}亿元，同比增长" for i in range(16)]
+    kw = dict(enc_cfg=EncoderConfig(vocab_bits=8, d_model=16, n_layers=1, n_heads=2,
+                                    d_ff=32, max_len=16, out_dim=8),
+              pre_cfg=PretrainConfig(steps=2, batch_size=4, min_span=4), log_every=1)
+    model, info = pretrain_data_parallel(texts, 2, "gloo", "cpu", **kw)
+    r = launch.run_ranks(torch_train_ranks.pretrain_world, 2, "gloo", "cpu",
+                         (texts, {"data": 1, "model": 2}, kw))
+    assert len(info["history"]) == 2 and r["every"][0]["history"] == r["every"][1]["history"]
     assert torch_ranks.jax_modules() == []
     print("OK")
 """
@@ -154,7 +166,8 @@ def test_rank_programs_never_import_jax(tmp_path):
     JAX package blocked in the parent AND in each rank: every interpreter
     of the run starts with the blocker (a ``sitecustomize`` on its path),
     imports the whole port and runs a sharded search, then a world of the
-    parallel train step's rank programs (a MoE step)."""
+    parallel train step's rank programs (a MoE step), then data-parallel
+    pretraining's (``pretrain_data_parallel``, a ``data x model`` world)."""
     (tmp_path / "sitecustomize.py").write_text(_BLOCKER)
     (tmp_path / "world.py").write_text(_NO_JAX_WORLD)
     env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{ROOT}")

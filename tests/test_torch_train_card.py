@@ -13,7 +13,11 @@ both), all of them in f32 and all but 0.1% in bf16.  Attention's key bias is
 left out of both: its gradient is 0 in exact arithmetic, so each side's
 value is rounding and Adam moves the bias by lr times that noise's sign.  The device BM25
 teacher (``host_teacher=False``: ``bm25_scores`` through kernel K2)
-against ``HostBM25Scorer`` within ``rtol = atol = 2e-5``."""
+against ``HostBM25Scorer`` within ``rtol = atol = 2e-5``.  The chunked
+step (``step.chunked``: one step captured as a CUDA graph and replayed)
+against as many eager steps from the same weights: metrics and every
+parameter bitwise, in f32 and bf16, a chunk and single steps continuing
+one learning-rate schedule."""
 
 import numpy as np
 import pytest
@@ -21,7 +25,8 @@ import torch
 
 from rag_challenge_2_tpu_torch.models.encoder import Encoder, EncoderConfig, tokenize_batch
 from rag_challenge_2_tpu_torch.models.pretrain import PairSampler, PretrainConfig
-from rag_challenge_2_tpu_torch.models.train import TrainConfig, make_optimizer, make_train_step
+from rag_challenge_2_tpu_torch.models.train import (
+    TrainConfig, init_training, make_optimizer, make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +95,27 @@ def test_device_teacher_on_the_card_equals_the_host_teacher(dev):
     a = card._teacher_scores(queries)
     assert gather_posting_spans.launches == before + 1
     np.testing.assert_allclose(a, host._teacher_scores(queries), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_step_replays_a_graph_equal_to_eager_steps(dev, dtype):
+    cfg = EncoderConfig(**CFG, dtype=dtype)
+    pre = PretrainConfig(batch_size=32, min_span=4, soft_target_weight=0.8)
+    sampler = PairSampler(CORPUS, pre, device="cpu")
+    rng = np.random.default_rng(2)
+    qs, ps, ts = zip(*[sampler.sample(rng) for _ in range(6)])
+    q = torch.from_numpy(np.stack([tokenize_batch(x, 48, cfg.vocab_bits) for x in qs])).to(dev)
+    p = torch.from_numpy(np.stack([tokenize_batch(x, 48, cfg.vocab_bits) for x in ps])).to(dev)
+    t = torch.from_numpy(np.stack(ts)).to(dev)
+    tc = TrainConfig(lr=3e-4, total_steps=20, warmup_steps=2)
+    eager, _, estep = init_training(cfg, tc, dev, torch.Generator().manual_seed(1))
+    graph, gopt, gstep = init_training(cfg, tc, dev, torch.Generator().manual_seed(1))
+    want = [estep(q[k], p[k], t[k]) for k in range(6)]
+    got = gstep.chunked(q[:4], p[:4], t[:4])                 # captured, replayed 4 times
+    more = [gstep(q[4], p[4], t[4])] + [gstep.chunked(q[5:], p[5:], t[5:])]
+    loss = torch.cat([got["loss"], more[0]["loss"][None], more[1]["loss"]])
+    assert torch.equal(loss, torch.stack([m["loss"] for m in want]))
+    assert torch.equal(got["accuracy"], torch.stack([m["accuracy"] for m in want[:4]]))
+    assert gopt.updates == 6
+    for (n, a), (_, b) in zip(eager.named_parameters(), graph.named_parameters()):
+        assert torch.equal(a, b), n

@@ -22,18 +22,6 @@ def _mesh(axes):
     return make_mesh(dict(axes), "gloo", "cpu")
 
 
-def full(name, t, mesh):
-    """The whole of a sharded parameter (or its gradient): its shards
-    all-gathered over each axis its spec splits it over."""
-    from rag_challenge_2_tpu_torch.parallel.collectives import _gathered
-    from rag_challenge_2_tpu_torch.parallel.mesh import encoder_param_spec
-
-    for dim, axis in enumerate(encoder_param_spec(name, t)):
-        if axis is not None and axis in mesh.mesh_dim_names:
-            t = _gathered(t, mesh.get_group(axis), dim)
-    return t
-
-
 def sharded_step(dev, cfg_kw, tc_kw, axes, sd, q, d, steps=1):
     """``steps`` train steps of the port on the mesh ``axes`` from the
     weights ``sd``, every rank given the global batch: each step's
@@ -43,7 +31,7 @@ def sharded_step(dev, cfg_kw, tc_kw, axes, sd, q, d, steps=1):
     from rag_challenge_2_tpu_torch.models.encoder import Encoder, EncoderConfig
     from rag_challenge_2_tpu_torch.models.train import (
         TrainConfig, make_optimizer, make_train_step)
-    from rag_challenge_2_tpu_torch.parallel.mesh import shard_params
+    from rag_challenge_2_tpu_torch.parallel.mesh import shard_params, whole_param
 
     mesh = _mesh(axes)
     tc = TrainConfig(**tc_kw)
@@ -54,8 +42,8 @@ def sharded_step(dev, cfg_kw, tc_kw, axes, sd, q, d, steps=1):
     step = make_train_step(module, make_optimizer(module.parameters(), tc), tc, mesh)
     metrics = [{k: v.item() for k, v in step(torch.from_numpy(q), torch.from_numpy(d)).items()}
                for _ in range(steps)]
-    grads = {n: full(n, p.grad, mesh).numpy() for n, p in module.named_parameters()}
-    after = {n: full(n, p.detach(), mesh).numpy() for n, p in module.named_parameters()}
+    grads = {n: whole_param(n, p.grad, mesh).numpy() for n, p in module.named_parameters()}
+    after = {n: whole_param(n, p.detach(), mesh).numpy() for n, p in module.named_parameters()}
     shapes = [None] * dist.get_world_size()
     dist.all_gather_object(shapes, {n: tuple(p.shape) for n, p in module.named_parameters()})
     every = [None] * dist.get_world_size()
@@ -68,11 +56,12 @@ def init_world(dev, cfg_kw, tc_kw, axes, seed):
     (gathered from the shards) and one step's metrics on every rank."""
     from rag_challenge_2_tpu_torch.models.encoder import EncoderConfig
     from rag_challenge_2_tpu_torch.models.train import TrainConfig, init_training
+    from rag_challenge_2_tpu_torch.parallel.mesh import whole_param
 
     mesh = _mesh(axes)
     module, _, step = init_training(EncoderConfig(**cfg_kw), TrainConfig(**tc_kw), dev,
                                     torch.Generator().manual_seed(seed), mesh)
-    weights = {n: full(n, p.detach().clone(), mesh).numpy()
+    weights = {n: whole_param(n, p.detach().clone(), mesh).numpy()
                for n, p in module.named_parameters()}
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.integers(0, 1 << cfg_kw["vocab_bits"], (8, 16)).astype(np.int32))
@@ -194,3 +183,60 @@ def shard_errors(dev, cfg_kw, axes):
     except ValueError as e:
         return str(e)
     return None
+
+
+def pretrain_world(dev, texts, axes, kw):
+    """``pretrain_encoder`` on the mesh ``axes`` (``kw``: its keywords,
+    weights as numpy arrays): rank 0's whole weights and history, and from
+    every rank its history, a digest of the whole weights it returned,
+    whether those equal its trained shards gathered and its shards their
+    split, its shards' shapes, the samplers it built (with the teacher
+    each uses) and its calls of the device teacher (``bm25_scores``)."""
+    import hashlib
+
+    import rag_challenge_2_tpu_torch.models.pretrain as P
+    from rag_challenge_2_tpu_torch.parallel.mesh import shard_state_dict, whole_param
+
+    mesh = _mesh(axes)
+    kw = dict(kw)
+    if kw.get("init_params") is not None:
+        kw["init_params"] = {k: torch.from_numpy(v) for k, v in kw["init_params"].items()}
+    trained, samplers, teacher_calls = [], [], []
+    real = P.init_training, P.PairSampler, P.bm25_scores
+
+    def init(*a, **k):
+        out = real[0](*a, **k)
+        trained.append(out[0])
+        return out
+
+    class Sampler(real[1]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            samplers.append(self)
+
+    def teacher(*a, **k):
+        teacher_calls.append(1)
+        return real[2](*a, **k)
+
+    P.init_training, P.PairSampler, P.bm25_scores = init, Sampler, teacher
+    try:
+        model, info = P.pretrain_encoder(texts, device=dev, mesh=mesh, **kw)
+    finally:
+        P.init_training, P.PairSampler, P.bm25_scores = real
+    whole = model.module.state_dict()
+    shards = {n: p.detach() for n, p in trained[0].named_parameters()}
+    # collectives: every rank gathers every tensor, so no short cut
+    gathered = [torch.equal(whole_param(n, shards[n], mesh), whole[n]) for n in whole]
+    split = shard_state_dict(whole, mesh, kw["enc_cfg"].n_heads)
+    digest = hashlib.sha256()
+    for n, t in whole.items():
+        digest.update(n.encode())
+        digest.update(t.numpy().tobytes())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, dict(
+        history=info["history"], digest=digest.hexdigest(), gathered=all(gathered),
+        split=all(torch.equal(split[n], shards[n]) for n in whole),
+        shapes={n: tuple(t.shape) for n, t in shards.items()},
+        samplers=[(s._host_scorer is None, s._sparse.indptr.device.type) for s in samplers],
+        teacher_calls=len(teacher_calls)))
+    return dict(every=every, info=info, whole={n: t.numpy() for n, t in whole.items()})

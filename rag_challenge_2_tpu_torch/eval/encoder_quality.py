@@ -488,12 +488,14 @@ def run_quality_eval(
     log=print,
     device: DeviceLike = None,
     ablation_steps: Optional[int] = None,
+    host_teacher: bool = True,
 ) -> Dict[str, Dict[str, float]]:
     """The full config-4 experiment on ``device``.  Returns metrics per
     system.  ``ablation_steps`` (default ``ict_steps``) is the length of
     the four ablation arms (removal-only ICT, crop + ICT, BM25 distill,
     listwise); the default recipe (``encoder_alias_distill``) always
-    trains ``ict_steps``."""
+    trains ``ict_steps``.  ``host_teacher=False`` mines every arm's BM25
+    positives with ``bm25_scores`` on ``device`` (``PretrainConfig``)."""
     import torch
 
     from ..models.encoder import EmbeddingModel, EncoderConfig, tokenize_batch
@@ -527,7 +529,8 @@ def run_quality_eval(
     def pretrain(steps, **kw):
         return pretrain_encoder(
             ds.chunk_texts, enc_cfg=cfg, device=device,
-            pre_cfg=PretrainConfig(steps=steps, batch_size=batch_size, seed=seed, **kw))
+            pre_cfg=PretrainConfig(steps=steps, batch_size=batch_size, seed=seed,
+                                   host_teacher=host_teacher, **kw))
 
     ict_only, info = pretrain(
         ablation_steps, crop_prob=0.0, keep_span_prob=0.0,   # removal-only ICT

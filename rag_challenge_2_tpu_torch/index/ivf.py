@@ -100,6 +100,20 @@ def build_ivf(
             x, assign, centroids, max_list_size, iters, seed)
         K = centroids.shape[0]
 
+    return ivf_layout(x.to(emb.dtype), rows, assign, centroids)
+
+
+def ivf_layout(x: torch.Tensor, rows: np.ndarray, assign: np.ndarray,
+               centroids: torch.Tensor,
+               row_scale: Optional[torch.Tensor] = None) -> IVFIndex:
+    """The IVF of rows ``x [n, D]`` (any store dtype; ``row_scale [n]``
+    beside int8 rows) whose corpus row ids are ``rows`` and clusters
+    ``assign``: rows permuted into their lists (stable: a list keeps row
+    order), list starts aligned, row ids, clusters and per-list row
+    bounds."""
+    dev = x.device
+    D = x.shape[1]
+    K = centroids.shape[0]
     order = np.argsort(assign, kind="stable")
     sorted_assign = assign[order]
     counts = np.bincount(sorted_assign, minlength=K)
@@ -109,12 +123,16 @@ def build_ivf(
     pos = offsets[:-1][sorted_assign] + within
     pos_of_x = np.empty(len(rows), np.int64)
     pos_of_x[order] = pos
-    # The one in-place update of the build: rows are copied straight into
-    # a zeroed destination, so the peak holds source + destination only
-    # (x[order] as an intermediate would be a third full-matrix buffer).
-    emb_perm = torch.zeros((n_pad, D), dtype=emb.dtype, device=dev)
-    emb_perm.index_copy_(0, torch.as_tensor(pos_of_x, device=dev),
-                         x.to(emb.dtype))
+    pos_of_x = torch.as_tensor(pos_of_x, device=dev)
+    # rows are copied straight into a zeroed destination, so the peak holds
+    # source + destination only (x[order] as an intermediate would be a
+    # third full-matrix buffer)
+    emb_perm = torch.zeros((n_pad, D), dtype=x.dtype, device=dev)
+    emb_perm.index_copy_(0, pos_of_x, x)
+    scale_perm = None
+    if row_scale is not None:
+        scale_perm = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+        scale_perm.index_copy_(0, pos_of_x, row_scale.float())
     rows_sorted = rows[order]
     row_ids = np.full((n_pad,), -1, np.int32)
     pos_cluster = np.full((n_pad,), K, np.int32)
@@ -131,6 +149,7 @@ def build_ivf(
         row_ids=t(row_ids),
         pos_cluster=t(pos_cluster),
         list_offsets=t(offsets.astype(np.int32)),
+        row_scale=scale_perm,
         list_row_min=t(lmin),
         list_row_max=t(lmax),
         k_clusters=K,
@@ -154,6 +173,22 @@ def _aligned_offsets(counts: np.ndarray):
     return offsets, n_pad
 
 
+def _next_slots(a: np.ndarray, cursor: np.ndarray) -> np.ndarray:
+    """Each row's destination slot, the next free position of its list
+    (``a``: the rows' cluster ids, ``cursor [K]``: each list's next free
+    position, advanced in place).  Rows of one list keep their order: one
+    stable argsort, a row's slot = its list's cursor + its rank in the
+    list's run."""
+    order = np.argsort(a, kind="stable")
+    sa = a[order]
+    counts = np.bincount(a, minlength=len(cursor))
+    run_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.empty(len(a), np.int64)
+    pos[order] = cursor[sa] + np.arange(len(a)) - run_start[sa]
+    cursor += counts
+    return pos
+
+
 def _list_row_bounds(sorted_assign, rows_sorted, K):
     """Per-cluster min/max original row id (-1 for empty lists)."""
     lmin = np.full((K,), np.iinfo(np.int32).max, np.int64)
@@ -168,13 +203,19 @@ def _list_row_bounds(sorted_assign, rows_sorted, K):
 _BALANCE_BATCH_BYTES = 2 << 30
 
 
-def _balance_clusters(x, assign, centroids, max_list_size, iters, seed):
+def _balance_clusters(x, assign, centroids, max_list_size, iters, seed,
+                      take: Optional[Callable[[np.ndarray], torch.Tensor]] = None):
     """Sub-split oversized clusters (the soft cap of :func:`build_ivf`).
 
     ``x`` are the vectors ``assign`` refers to.  Oversized clusters are
     grouped by (padded size, k_sub), and each group sub-splits through one
-    :func:`kmeans_batched` call.  Returns ``(centroids f32 [K', D] on
-    x's device, assign np.int32 [len(x)])``."""
+    :func:`kmeans_batched` call.  ``take(idx)`` gives the f32 rows of the
+    indices ``idx`` into ``assign`` (default: ``x[idx]``; a row-sharded
+    store gathers them from their owners).  Returns ``(centroids f32
+    [K', D] on x's device, assign np.int32 [len(assign)])``."""
+    if take is None:
+        def take(idx):
+            return x[torch.as_tensor(idx, device=x.device)]
     assign = np.asarray(assign).copy()
     cent_list = list(centroids.cpu().numpy())
     D = x.shape[1]
@@ -200,7 +241,7 @@ def _balance_clusters(x, assign, centroids, max_list_size, iters, seed):
                     # pad rows CYCLE through the members so no single
                     # point is double-weighted during sub-clustering
                     idx_rows.append(members[np.arange(pad_n) % len(members)])
-                xs = x[torch.as_tensor(np.stack(idx_rows), device=x.device)]
+                xs = take(np.stack(idx_rows))
                 sub_c, sub_a = kmeans_batched(
                     xs, k_sub, iters=max(3, iters // 2),
                     seed=seed + rnd * 131071 + batch[0] + 1,
@@ -253,7 +294,8 @@ def build_ivf_streaming(
         sizes.append(chunk.shape[0])
         per = max(1, sample_rows // n_chunks)
         stride = max(1, chunk.shape[0] // per)
-        samples.append(chunk[::stride][:per].float())
+        # a copy: a view of the chunk would keep all of it alive
+        samples.append(chunk[::stride][:per].to(torch.float32, copy=True))
         del chunk
     N = int(np.sum(sizes))
     starts = np.zeros(n_chunks, np.int64)
@@ -281,6 +323,7 @@ def build_ivf_streaming(
     row_scale = (torch.zeros((n_pad,), dtype=torch.float32, device=dev)
                  if quantize else None)
     row_ids = np.full((n_pad,), -1, np.int32)
+    pos_cluster = np.full((n_pad,), K, np.int32)
     cursor = offsets[:K].copy()
     for i in range(n_chunks):
         chunk = chunk_provider(i)
@@ -288,14 +331,9 @@ def build_ivf_streaming(
             dtype = torch.int8 if quantize else chunk.dtype
             dest = torch.zeros((n_pad, D), dtype=dtype, device=dev)
         a = assigns[i]
-        # per-row destination slot: the next free position of its list
-        pos = np.empty(len(a), np.int64)
-        for c in np.unique(a):
-            m = a == c
-            n_c = int(m.sum())
-            pos[m] = cursor[c] + np.arange(n_c)
-            cursor[c] += n_c
+        pos = _next_slots(a, cursor)
         row_ids[pos] = starts[i] + np.arange(len(a))
+        pos_cluster[pos] = a
         pos_t = torch.as_tensor(pos, device=dev)
         if quantize:
             q8, sc = quantize_rows(chunk)
@@ -305,9 +343,6 @@ def build_ivf_streaming(
             dest.index_copy_(0, pos_t, chunk.to(dest.dtype))
         del chunk
 
-    pos_cluster = np.full((n_pad,), K, np.int32)
-    for c in range(K):
-        pos_cluster[offsets[c] : offsets[c] + counts[c]] = c
     live = row_ids >= 0
     lmin, lmax = _list_row_bounds(
         pos_cluster[live], row_ids[live].astype(np.int64), K)
@@ -487,6 +522,7 @@ def ivf_search(
     win_len: Optional[torch.Tensor] = None,
     pair_doc: Optional[torch.Tensor] = None,
     pos_doc: Optional[torch.Tensor] = None,
+    probes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k corpus rows per query: ``(f32 [B, k_eff], i32 [B, k_eff])``
     with ``k_eff = min(k, P * W)``; rows -1 where nothing scored.
@@ -512,6 +548,9 @@ def ivf_search(
     the reference's span kernel does; an int8 store scores int8 codes.
 
     window: per-list span width (defaults to the longest list).
+    probes: ``[B, P]`` clusters chosen by the caller (a rank of a
+    row-sharded IVF picks them from the whole store's list bounds); the
+    routing arguments then only mask the candidates.
     """
     if win_start is not None and index.list_row_min is None and mask is None:
         raise ValueError(
@@ -525,8 +564,9 @@ def ivf_search(
     W = int(window or max(index.max_list, 1))
     qf = q.float()
     int8_store = index.emb_perm.dtype == torch.int8
-    probes = select_probes(index, qf, nprobe, mask=mask, win_start=win_start,
-                           win_len=win_len, pair_doc=pair_doc)   # [B, P]
+    if probes is None:
+        probes = select_probes(index, qf, nprobe, mask=mask, win_start=win_start,
+                               win_len=win_len, pair_doc=pair_doc)   # [B, P]
     P = probes.shape[1]
     k_eff = min(k, P * W)
 

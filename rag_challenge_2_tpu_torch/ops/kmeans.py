@@ -15,7 +15,7 @@ adds use atomics, so centroids are not bit-reproducible run to run.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,18 +35,6 @@ def assign_clusters(x: torch.Tensor, centroids: torch.Tensor,
         scores = x[s:s + block].float() @ c.T - half_c2
         out[s:s + block] = scores.argmax(dim=1).to(torch.int32)
     return out
-
-
-@torch.inference_mode()
-def _update_centroids(x, assign, old_centroids, k):
-    idx = assign.long()
-    sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
-    sums.index_add_(0, idx, x.float())
-    counts = torch.zeros(k, dtype=torch.float32, device=x.device)
-    counts.index_add_(0, idx, torch.ones(x.shape[0], device=x.device))
-    new = sums / counts.clamp(min=1.0)[:, None]
-    # empty clusters keep their previous centroid
-    return torch.where(counts[:, None] > 0, new, old_centroids), counts
 
 
 def _assign_batched(xs, cent):
@@ -85,16 +73,43 @@ def kmeans_batched(xs: torch.Tensor, k: int, iters: int = 10,
 
 
 def kmeans(x: torch.Tensor, k: int, iters: int = 10, seed: int = 0,
-           block: int = 16384) -> Tuple[torch.Tensor, torch.Tensor]:
+           block: int = 16384, *, n_before: int = 0, n_total: Optional[int] = None,
+           all_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lloyd's k-means: ``(centroids f32 [k, D], assignments i32 [N])``.
-    Init = ``k`` distinct random rows (zero rows beyond N)."""
-    N = x.shape[0]
+    Init = ``k`` distinct random rows (zero rows beyond N); empty clusters
+    keep their centroid.
+
+    Over rows that live on the ranks of a world (called on every rank):
+    ``x`` holds this rank's rows, rows ``[n_before, n_before + N)`` of the
+    ``n_total`` rows the ranks hold in rank order, and ``all_sum(t)`` sums
+    ``t`` over the ranks in place and returns it.  The initial rows are the
+    same draw over the global row indices, each read from its owner (the
+    owner writes it, the others zeros, one sum); each iteration sums the
+    clusters' sums and counts over the ranks.  Every rank gets the same
+    centroids, equal to one device's on all the rows up to the order of
+    the f32 sums, and its own rows' assignments."""
+    N, D = x.shape
+    n_total = N if n_total is None else n_total
     rng = np.random.default_rng(seed)
-    init_rows = rng.choice(N, size=min(k, N), replace=False)
-    centroids = x[torch.as_tensor(init_rows, device=x.device)].float()
-    if k > N:
-        centroids = torch.cat([centroids, centroids.new_zeros((k - N, x.shape[1]))])
+    init_rows = rng.choice(n_total, size=min(k, n_total), replace=False)
+    own = (init_rows >= n_before) & (init_rows < n_before + N)
+    centroids = torch.zeros((k, D), dtype=torch.float32, device=x.device)
+    if own.any():
+        centroids[torch.as_tensor(np.flatnonzero(own), device=x.device)] = x[
+            torch.as_tensor(init_rows[own] - n_before, device=x.device)].float()
+    if all_sum is not None:
+        all_sum(centroids)
+    ones = torch.ones(N, device=x.device)
     for _ in range(iters):
-        assign = assign_clusters(x, centroids, block=block)
-        centroids, _ = _update_centroids(x, assign, centroids, k)
+        idx = assign_clusters(x, centroids, block=block).long()
+        # [k, D] sums beside the [k] counts: one all-reduce for both
+        acc = torch.zeros((k, D + 1), dtype=torch.float32, device=x.device)
+        acc[:, :D].index_add_(0, idx, x.float())
+        acc[:, D].index_add_(0, idx, ones)
+        if all_sum is not None:
+            all_sum(acc)
+        counts = acc[:, D]
+        new = acc[:, :D] / counts.clamp(min=1.0)[:, None]
+        centroids = torch.where(counts[:, None] > 0, new, centroids)
     return centroids, assign_clusters(x, centroids, block=block)

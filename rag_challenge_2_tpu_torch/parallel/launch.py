@@ -23,13 +23,18 @@ guessed:
 
 CUDA tensors in ``args`` reach the ranks through CUDA IPC: each rank maps
 the caller's memory, so a store is never copied per rank.  The caller keeps
-them alive until :func:`run_ranks` returns, which it does.  Rank 0's result
-comes back pickled, so return host objects (numbers, numpy arrays, CPU
-tensors).
+them alive until :func:`run_ranks` returns, which it does.  A rank drops
+its mapping as soon as ``fn`` returns (multiprocessing keeps a rank's
+process object, and with it the arguments it was started with, until the
+interpreter exits; a mapping still held then is never released, and the
+caller warns at its own exit that its shared tensors were not released).
+Rank 0's result comes back pickled, so return host objects (numbers, numpy
+arrays, CPU tensors).
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import pickle
 import queue
@@ -84,7 +89,10 @@ def check_world(world: int, backend: str, device: str) -> None:
 
 
 def _rank_main(rank: int, world: int, backend: str, device: str, init: str,
-               timeout_s: float, fn: Callable, args: Sequence, out) -> None:
+               timeout_s: float, fn: Callable, box: list, out) -> None:
+    # the arguments come in a one-item list: taken out of it, the process
+    # object no longer refers to them, and they go when this frame drops them
+    args = box.pop()
     try:
         dev = rank_device(rank, backend, device)
         if dev.type == "cpu":
@@ -100,9 +108,12 @@ def _rank_main(rank: int, world: int, backend: str, device: str, init: str,
             result = fn(dev, *args)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+            payload = pickle.dumps(result) if rank == 0 else None
+            del args, result
+            gc.collect()                        # unmaps the caller's memory
         finally:
             dist.destroy_process_group()
-        out.put((rank, "result", pickle.dumps(result) if rank == 0 else None))
+        out.put((rank, "result", payload))
     except BaseException:                       # reported, then the rank exits
         out.put((rank, "error", traceback.format_exc()))
 
@@ -126,7 +137,7 @@ def run_ranks(fn: Callable, world: int, backend: str, device: str,
     out = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, world, backend, device, init, timeout, fn,
-                               tuple(args), out))
+                               [tuple(args)], out))
              for r in range(world)]
     deadline = time.monotonic() + timeout
     reported: dict = {}

@@ -27,8 +27,9 @@ The sharded form (BASELINE config 5 over a world of ranks, ``parallel/``)
 runs on every rank: ``hier=(mesh, slice_axis, dev_axis)`` with a
 row-sharded store sends the basic dense stage through the two-level
 merge, a ``ShardedSparseIndex`` merges BM25 over its CSR shards, and a
-``ShardedIVF`` probes each rank's own IVF; fusion and materialisation run
-alike on every rank.  The traversal methods walk the sharded store too:
+``ShardedIVF`` probes each rank's rows (``QueryEngine.build_ivf`` builds
+one IVF over the whole store there, as the JAX engine does); fusion and
+materialisation run alike on every rank.  The traversal methods walk the sharded store too:
 a hop is a sharded top-k over each rank's rows of the slot (K1 / K3 on
 every rank) and a row read goes to the row's owner
 (``parallel/sharded_traversal.py``), so every rank returns the
@@ -57,8 +58,8 @@ from ..index.schema import CorpusIndex, CorpusMeta, ShardedSparseIndex
 from ..ops.aggregate import FusedCandidates, fuse_hits
 from ..ops.topk import NEG_INF, dense_topk
 from ..parallel.mesh import axis_index
-from ..parallel.sharded_ivf import ShardedIVF, sharded_ivf_search
-from ..parallel.sharded_search import make_hierarchical_topk
+from ..parallel.sharded_ivf import ShardedIVF, build_shared_ivf, sharded_ivf_search
+from ..parallel.sharded_search import make_hierarchical_topk, shard_vec
 from ..parallel.sharded_sparse import sharded_bm25_topk
 from ..parallel.sharded_traversal import RowShard
 from .traversal import (CAND_RECORD, TraversalResult, emit_hits, traverse,
@@ -540,13 +541,14 @@ class QueryEngine:
                  hier=None):
         self.index = index
         self.meta = meta
-        # optional clustered index for SearchConfig(use_ivf=True): an
-        # IVFIndex, or a parallel.ShardedIVF (distributed probes)
-        self.ivf = ivf
         # optional (mesh, slice_axis, dev_axis): index.emb holds this rank's
         # rows, the dense stage runs the two-level merge and the traversals
         # hop over every rank's rows
         self.hier = hier
+        # optional clustered index for SearchConfig(use_ivf=True): an
+        # IVFIndex, or a parallel.ShardedIVF (distributed probes; the only
+        # kind a row-sharded engine takes)
+        self.ivf = ivf
         self.device = index.emb.device
         self._doc_ids_np = index.doc_id.cpu().numpy()
         self._valid_np = index.valid.cpu().numpy()
@@ -593,24 +595,47 @@ class QueryEngine:
         if longest:
             self.window = min(-(-longest // 128) * 128, index.n_pad)
 
-    def build_ivf(self, quantize: Optional[bool] = None, **kwargs) -> IVFIndex:
+    @property
+    def ivf(self):
+        return self._ivf
+
+    @ivf.setter
+    def ivf(self, ivf):
+        if self.hier is not None and ivf is not None and not isinstance(ivf, ShardedIVF):
+            # a rank holds only its rows: a whole-store IVFIndex would probe
+            # them under the wrong row ids
+            raise ValueError(
+                "a row-sharded engine (hier=) serves use_ivf from a "
+                "parallel.ShardedIVF: call build_ivf() on every rank (one IVF "
+                "over the whole store), or pass parallel.shard_ivf(ivf, ...)")
+        self._ivf = ivf
+
+    def build_ivf(self, quantize: Optional[bool] = None, **kwargs):
         """Cluster the corpus on its device for ``use_ivf`` queries
         (``kwargs`` go to ``index.ivf.build_ivf``).  An int8 corpus is
         dequantized for clustering (k-means on raw codes would use the
         wrong geometry); ``quantize=True`` then re-quantizes the IVF to
-        int8, otherwise the probe store stays f32.  A row-sharded store
-        (``hier``) clusters per shard: ``parallel.build_sharded_ivf``."""
-        if self.hier is not None:
-            raise NotImplementedError("a row-sharded store builds its IVF per "
-                                      "shard: parallel.build_sharded_ivf")
+        int8, otherwise the probe store stays f32.
+
+        A row-sharded store (``hier``) clusters the whole store, as the
+        JAX engine does, called on every rank:
+        ``parallel.build_shared_ivf`` over each rank's rows and its part of
+        the valid column gives a ``ShardedIVF`` with shared centroids, and
+        ``use_ivf`` returns the whole-store IVF's answers on every rank."""
         emb = self.index.emb
-        if self.index.emb_scale is not None:
+        int8 = self.index.emb_scale is not None
+        if int8:
             emb = emb.float() * self.index.emb_scale[:, None]
-            self.ivf = build_ivf(emb, valid=self.index.valid, **kwargs)
-            if quantize:
-                self.ivf = quantize_ivf(self.ivf)
-        else:
-            self.ivf = build_ivf(emb, valid=self.index.valid, **kwargs)
+        if self.hier is not None:
+            mesh, s_ax, d_ax = self.hier
+            grid = (s_ax, d_ax)
+            self.ivf = build_shared_ivf(
+                emb, mesh, valid=shard_vec(self.index.valid, mesh, grid, fill=False),
+                axis=grid, quantize=bool(int8 and quantize), **kwargs)
+            return self.ivf
+        self.ivf = build_ivf(emb, valid=self.index.valid, **kwargs)
+        if int8 and quantize:
+            self.ivf = quantize_ivf(self.ivf)
         return self.ivf
 
     def cluster_order(self, **build_kwargs) -> "QueryEngine":
@@ -619,7 +644,15 @@ class QueryEngine:
         and the flat paths.  Builds the IVF first if absent.  An int8
         corpus keeps its int8 budget: the IVF is re-quantized before its
         buffer becomes the corpus.  Documents are then fragmented, so the
-        new engine's window is 0 and IVF routing is by doc equality."""
+        new engine's window is 0 and IVF routing is by doc equality.
+
+        A row-sharded engine refuses: a cluster-ordered store is one store
+        in the whole store's list order, which no rank holds."""
+        if self.hier is not None:
+            raise ValueError(
+                "cluster_order() rearranges the whole store and has no "
+                "row-sharded form: a row-sharded engine serves use_ivf from "
+                "build_ivf() (one IVF over the whole store, shared by the ranks)")
         if self.ivf is None:
             self.build_ivf(**build_kwargs)
         ivf = self.ivf

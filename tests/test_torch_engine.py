@@ -235,14 +235,21 @@ def test_unported_options_raise(engines, rng, kw, item):
 
 
 def test_unported_engine_features_raise(engines):
-    """The sharded engine (hier=, tests/test_torch_sharded_*.py) builds its
-    IVF per shard (``parallel.build_sharded_ivf``), so ``build_ivf``
-    raises there; an IVF handed to an engine is the one it serves."""
+    """The sharded engine (hier=) builds one IVF over the whole store with
+    ``build_ivf`` on every rank (tests/test_torch_hier_ivf.py holds it to
+    the JAX engine); a whole-store ``IVFIndex`` handed to it, or set on
+    it, and ``cluster_order()`` there have no row-sharded form and raise,
+    pointing to ``build_ivf()``.  An IVF handed to a single-device engine
+    is the one it serves."""
     _, te, _ = engines
-    sharded = QueryEngine(te.index, te.meta, hier=object())
-    with pytest.raises(NotImplementedError, match="build_sharded_ivf"):
-        sharded.build_ivf(n_clusters=4, iters=2)
     ivf = QueryEngine(te.index, te.meta).build_ivf(n_clusters=4, iters=2)
+    with pytest.raises(ValueError, match=r"build_ivf\(\)"):
+        QueryEngine(te.index, te.meta, ivf=ivf, hier=object())
+    sharded = QueryEngine(te.index, te.meta, hier=object())
+    with pytest.raises(ValueError, match=r"build_ivf\(\)"):
+        sharded.ivf = ivf
+    with pytest.raises(ValueError, match=r"build_ivf\(\)"):
+        sharded.cluster_order()
     assert QueryEngine(te.index, te.meta, ivf=ivf).ivf is ivf
 
 

@@ -216,6 +216,36 @@ def test_build_ivf_streaming_matches_jax(rng, quantize):
     np.testing.assert_array_equal(t.pos_cluster.numpy()[live], a_all[row_ids[live]])
 
 
+def _slots_by_loop(a, cursor):
+    """The reference's per-cluster scatter loop (``build_ivf_streaming``)."""
+    pos = np.empty(len(a), np.int64)
+    for c in np.unique(a):
+        m = a == c
+        n_c = int(m.sum())
+        pos[m] = cursor[c] + np.arange(n_c)
+        cursor[c] += n_c
+    return pos
+
+
+@pytest.mark.parametrize("K", [300, 517])
+def test_next_slots_equals_the_per_cluster_loop(rng, K):
+    """The streamed build's argsort scatter gives every row the slot the
+    reference's per-cluster loop gives it, chunk after chunk (the cursor
+    carried over), empty and single-row lists included."""
+    counts = np.zeros(K, np.int64)
+    chunks = [rng.integers(0, K - 7, size=n).astype(np.int32)
+              for n in (5_000, 1, 3_333)]
+    for a in chunks:
+        counts += np.bincount(a, minlength=K)
+    offsets, _ = tivf._aligned_offsets(counts)
+    got_cur, want_cur = offsets[:K].copy(), offsets[:K].copy()
+    for a in chunks:
+        np.testing.assert_array_equal(tivf._next_slots(a, got_cur),
+                                      _slots_by_loop(a, want_cur))
+        np.testing.assert_array_equal(got_cur, want_cur)
+    np.testing.assert_array_equal(got_cur, offsets[:K] + counts)
+
+
 def test_quantize_ivf_matches_jax_and_is_idempotent(rng):
     x = _clustered(rng, per=40)
     j = jivf.build_ivf(jnp.asarray(x), n_clusters=8, iters=5)

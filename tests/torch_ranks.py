@@ -243,6 +243,54 @@ def ivf_build(dev, emb, n_clusters, q, k, nprobes):
     return every, found, err
 
 
+def hier_ivf_cases(dev, jobs):
+    """``QueryEngine(hier=...)`` serving ``use_ivf`` from one IVF over the
+    whole store, for each job dict(index_path, axes, calls, build=kwargs
+    of ``build_ivf`` or None, ivf_path=a whole-store IVF sidecar to
+    ``shard_ivf`` or None): this rank's view of the IVF (the shared
+    centroids, its rows' global ids and clusters, the global list bounds,
+    k_clusters, max_list) and the materialized results of each call.  The
+    results must be equal on every rank, bit for bit; rank 0 checks."""
+    from rag_challenge_2_tpu_torch.index import load_ivf
+    from rag_challenge_2_tpu_torch.parallel.mesh import axis_index
+    from rag_challenge_2_tpu_torch.parallel.sharded_ivf import shard_ivf
+    from rag_challenge_2_tpu_torch.retrieval import SearchConfig
+
+    out = []
+    for job in jobs:
+        eng = _sharded_engine(job["index_path"], job["axes"], True, None, False)
+        mesh, grid = eng.hier[0], eng.hier[1:]
+        rps = eng.index.emb.shape[0]
+        if job.get("build") is not None:
+            sivf = eng.build_ivf(**job["build"])
+        else:
+            sivf = eng.ivf = shard_ivf(load_ivf(job["ivf_path"], device="cpu"), mesh,
+                                       grid, rows_per_shard=rps)
+        local = sivf.local
+        live = local.row_ids >= 0
+        base = axis_index(mesh, grid) * rps
+        mine = dict(centroids=local.centroids.numpy(),
+                    rows=(local.row_ids[live].long() + base).numpy(),
+                    clusters=local.pos_cluster[live].numpy(),
+                    list_row_min=sivf.list_row_min.numpy(),
+                    list_row_max=sivf.list_row_max.numpy(),
+                    k_clusters=sivf.k_clusters, max_list=sivf.max_list,
+                    dtype=str(local.emb_perm.dtype))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        res = []
+        for q, years, kw, texts in job["calls"]:
+            cfg = SearchConfig(**kw)
+            res.append(eng.materialize(eng.search(q, "金盘科技", "营业收入", years, cfg,
+                                                  query_texts=texts), cfg))
+        same = [None] * dist.get_world_size()
+        dist.all_gather_object(same, repr(res))
+        if any(x != repr(res) for x in same):
+            raise AssertionError("the ranks of a sharded engine disagree")
+        out.append((every, res))
+    return out
+
+
 def _details_np(details):
     """A search's details as numpy: TraversalResults as tuples of arrays."""
     return {k: tuple(x.numpy() for x in v) if isinstance(v, tuple) else v.numpy()

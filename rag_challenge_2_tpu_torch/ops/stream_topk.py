@@ -45,6 +45,7 @@ import torch
 
 from .. import device  # noqa: F401  (full-f32 matmuls for the plain version)
 from ..utils import kernels
+from ..utils.profiling import note
 from .float_scan import FLOAT_CONSTANTS, FloatPlan, float_plan, sm_count
 from .quant import I8_EXACT_F32_DIM, i8_dot, int8_epilogue
 from .topk import BLOCK_ROWS, KERNEL_MAX_K, NEG_INF, stable_topk
@@ -314,6 +315,7 @@ def stream_topk(
     lib = _lib()
     dev = q.device
     pl = plan(B, two_pass, mode != 0, N, sm_count(dev), k_eff, emb.element_size())
+    note(regime=pl.regime)
     cut = pl.cut
     # one buffer for the chunks' candidate lists and the merge levels'
     # (values, then rows) and one for the result

@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import NEW, span
+
 NEG_INF = -3.0e38  # the reference's masked-score value (not -inf)
 
 # Rows per step of the plain version of the bounded-memory scan.
@@ -148,20 +150,22 @@ def blocked_topk(
     for s0 in range(0, q.shape[0], MAX_QUERIES):
         sl = slice(s0, s0 + MAX_QUERIES)
         m = mask[sl] if mask is not None and mask.dim() == 2 else mask
-        qf = q[sl].float().contiguous()
-        kw = {}
-        if int8:
-            if query_2pass:
-                q_in, s_hi, s_lo = quantize_query_2pass(qf)
-                kw.update(q_scale=s_hi, q_scale_lo=s_lo)
+        with span("dense.code_queries"):
+            qf = q[sl].float().contiguous()
+            kw = {}
+            if int8:
+                if query_2pass:
+                    q_in, s_hi, s_lo = quantize_query_2pass(qf)
+                    kw.update(q_scale=s_hi, q_scale_lo=s_lo)
+                else:
+                    q_in, kw["q_scale"] = quantize_rows(qf)
+                kw["row_scale"] = row_scale
+                if assign is not None:
+                    kw.update(assign=assign, qc=(qf @ centroids.float().T).contiguous())
             else:
-                q_in, kw["q_scale"] = quantize_rows(qf)
-            kw["row_scale"] = row_scale
-            if assign is not None:
-                kw.update(assign=assign, qc=(qf @ centroids.float().T).contiguous())
-        else:
-            q_in = qf
-        v, r = scan(q_in.contiguous(), emb, k, m, block=block, **kw)
+                q_in = qf
+        with span("dense.launch"):
+            v, r = scan(q_in.contiguous(), emb, k, m, block=block, **kw)
         vals.append(v)
         rows.append(r)
     return torch.cat(vals), torch.cat(rows)
@@ -175,17 +179,18 @@ def fill_overflow(vals: torch.Tensor, rows: torch.Tensor,
     the device, no synchronisation."""
     if mask is None:
         return vals, rows                 # k_eff <= N rows are all eligible
-    k = rows.shape[1]
-    m = mask if mask.dim() == 2 else mask[None, :]
-    excluded = torch.cumsum((~m.bool()).to(torch.int32), dim=1)   # [·, N]
-    nth = torch.arange(1, k + 1, dtype=torch.int32, device=rows.device)
-    first = torch.searchsorted(excluded.contiguous(),
-                               nth.expand(excluded.shape[0], k).contiguous())
-    first = first.expand(rows.shape[0], k)
-    slot = torch.arange(k, device=rows.device)[None, :] - (rows >= 0).sum(
-        1, keepdim=True)
-    fill = torch.gather(first, 1, slot.clamp(min=0)).to(torch.int32)
-    return vals, torch.where(rows < 0, fill, rows)
+    with span("dense.fill"):
+        k = rows.shape[1]
+        m = mask if mask.dim() == 2 else mask[None, :]
+        excluded = torch.cumsum((~m.bool()).to(torch.int32), dim=1)   # [·, N]
+        nth = torch.arange(1, k + 1, dtype=torch.int32, device=rows.device)
+        first = torch.searchsorted(excluded.contiguous(),
+                                   nth.expand(excluded.shape[0], k).contiguous())
+        first = first.expand(rows.shape[0], k)
+        slot = torch.arange(k, device=rows.device)[None, :] - (rows >= 0).sum(
+            1, keepdim=True)
+        fill = torch.gather(first, 1, slot.clamp(min=0)).to(torch.int32)
+        return vals, torch.where(rows < 0, fill, rows)
 
 
 def dense_topk(
@@ -212,23 +217,33 @@ def dense_topk(
 
     Returns ``(values [B, k_eff] f32, rows [B, k_eff] i32)`` descending;
     past the eligible rows come masked rows at NEG_INF, lowest first.
+
+    The call is the span ``dense.topk`` (it opens a request when none is
+    current): ``dense.code_queries`` and ``dense.launch`` a block of
+    queries, ``dense.fill`` under a mask (``utils/profiling.py``).
     """
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
-    if emb.dtype == torch.int8:
-        if row_scale is None:
-            raise ValueError("int8 emb requires row_scale (see ops/quant.py)")
-        from .quant import int8_topk
+    with span("dense.topk", request=NEW) as sp:
+        if sp is not None:
+            sp.attrs.update(queries=int(q.shape[0]), rows=int(emb.shape[0]), k=int(k),
+                            dtype=str(emb.dtype).removeprefix("torch."),
+                            route=topk_route(k, emb.dtype, q.device.type))
+        if emb.dtype == torch.int8:
+            if row_scale is None:
+                raise ValueError("int8 emb requires row_scale (see ops/quant.py)")
+            from .quant import int8_topk
 
-        return int8_topk(q, emb, row_scale, k, mask)
-    if impl == "blocked":
-        return blocked_topk(q, emb, k, mask=mask)
-    from .dense_topk import MAX_QUERIES, dense_topk_fused
+            return int8_topk(q, emb, row_scale, k, mask)
+        if impl == "blocked":
+            return blocked_topk(q, emb, k, mask=mask)
+        from .dense_topk import MAX_QUERIES, dense_topk_fused
 
-    route = topk_route(k, emb.dtype, q.device.type)
-    if route == "plain" or (route == "kernel" and q.shape[0] <= MAX_QUERIES):
-        return dense_topk_fused(q, emb, k, mask)
-    return fill_overflow(*blocked_topk(q, emb, k, mask=mask), mask)
+        route = topk_route(k, emb.dtype, q.device.type)
+        if route == "plain" or (route == "kernel" and q.shape[0] <= MAX_QUERIES):
+            with span("dense.launch"):
+                return dense_topk_fused(q, emb, k, mask)
+        return fill_overflow(*blocked_topk(q, emb, k, mask=mask), mask)
 
 
 def approx_topk(

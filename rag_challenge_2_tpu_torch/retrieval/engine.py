@@ -62,6 +62,7 @@ from ..parallel.sharded_ivf import ShardedIVF, build_shared_ivf, sharded_ivf_sea
 from ..parallel.sharded_search import make_hierarchical_topk, shard_vec
 from ..parallel.sharded_sparse import sharded_bm25_topk
 from ..parallel.sharded_traversal import RowShard
+from ..utils.profiling import member, request_scope, span
 from .traversal import (CAND_RECORD, TraversalResult, emit_hits, traverse,
                         traverse_windowed)
 
@@ -431,7 +432,8 @@ def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
             return ivf_hits(index, ivf, req, cfg, window, k)
         if hier is not None:
             return hier_dense_hits(index, req, cfg, hier, window, k)
-        return dense_hits(index, req, cfg, window, k)
+        with span("engine.dense"):
+            return dense_hits(index, req, cfg, window, k)
 
     def expansion(anchors_pm: torch.Tensor, mode: str):
         res, qids_t, qv_flat = run_traverse(index, req, cfg, window, anchors_pm,
@@ -451,7 +453,8 @@ def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
         if hier is not None:
             rows, _, _, _, ok = hier_dense_hits(index, req, cfg, hier, window, 1)
         else:
-            rows, _, _, _, ok = dense_hits(index, req, cfg, window, 1)
+            with span("engine.dense"):
+                rows, _, _, _, ok = dense_hits(index, req, cfg, window, 1)
         anchor = torch.where(ok, rows, torch.full_like(rows, -1))[:, :1]
         block, res, qids_t = expansion(anchor, cfg.method)
         blocks.append(block)
@@ -468,7 +471,8 @@ def _arms(index: CorpusIndex, req: Request, cfg: SearchConfig, window: int,
         details.update(basic_rows=rows, basic_ok=ok, basic_sims=sims,
                        ssg=ssg_res, tri=tri_res)
     if cfg.use_bm25 and req.q_terms is not None and index.sparse is not None:
-        blocks.append(bm25_hits(index, req, cfg, window))
+        with span("engine.bm25"):
+            blocks.append(bm25_hits(index, req, cfg, window))
     return blocks, details
 
 
@@ -495,7 +499,8 @@ def search_device(
     ``basic_rows``, ``basic_ok``, ``basic_sims``, ``ssg`` and ``tri``:
     the JAX engine's arrays in its order (see :func:`run_traverse`)."""
     blocks, details = _arms(index, req, cfg, window, ivf, hier=hier)
-    return fuse_blocks(index, blocks, cfg), details
+    with span("engine.fuse"):
+        return fuse_blocks(index, blocks, cfg), details
 
 
 def search_many_device(
@@ -525,7 +530,8 @@ def search_many_device(
             L = rows.shape[0] // R
             sl = slice(r * L, (r + 1) * L)
             parts.append((rows[sl], sims[sl], qids[sl] - r * Q, mids[sl], ok[sl]))
-        out.append(fuse_blocks(index, parts, cfg))
+        with span("engine.fuse", request=member(r)):
+            out.append(fuse_blocks(index, parts, cfg))
     return out
 
 
@@ -750,20 +756,32 @@ class QueryEngine:
         query_texts: Optional[Sequence[str]] = None,
     ) -> Request:
         """Route one request and pad it: ``[B, D]`` query embeddings (numpy
-        or tensor) and, with ``use_bm25``, the BM25 term ids."""
-        doc_ids = self.routed_docs(company, question, selected_years)
-        if not doc_ids:
-            raise ValueError(f"No report found with '{company}' company name.")
-        dm, dv, row_slot, ws, wl, sd = self.doc_masks(doc_ids, cfg.max_docs)
-        q, qv = self._pad_request(query_embs, cfg.max_queries)
-        q_terms = None
-        if cfg.use_bm25 and self.index.sparse is not None:
-            from ..ops.bm25 import encode_queries_host
+        or tensor) and, with ``use_bm25``, the BM25 term ids.  The span
+        ``engine.prepare`` (one request), with ``engine.route``,
+        ``engine.tokenize`` and ``engine.upload`` inside."""
+        with span("engine.prepare", count=1):
+            with span("engine.route"):
+                doc_ids = self.routed_docs(company, question, selected_years)
+                if not doc_ids:
+                    raise ValueError(f"No report found with '{company}' company name.")
+                dm, dv, row_slot, ws, wl, sd = self.doc_masks(doc_ids, cfg.max_docs)
+            terms = None
+            if cfg.use_bm25 and self.index.sparse is not None:
+                terms = self._term_ids(query_texts, question, cfg.max_queries)
+            with span("engine.upload"):
+                q, qv = self._pad_request(query_embs, cfg.max_queries)
+                q_terms = None if terms is None else torch.from_numpy(terms).to(self.device)
+            return Request(q, qv, dm, dv, q_terms, row_slot, ws, wl, sd)
 
-            texts = _bm25_texts(query_texts, question, cfg.max_queries)
-            q_terms = torch.from_numpy(encode_queries_host(
-                texts, vocab_bits=self.index.sparse.vocab_bits)).to(self.device)
-        return Request(q, qv, dm, dv, q_terms, row_slot, ws, wl, sd)
+    def _term_ids(self, query_texts, question: str, max_q: int,
+                  request: Optional[int] = None) -> np.ndarray:
+        """The host BM25 term ids of one request's texts (the span
+        ``engine.tokenize``, serving ``request`` or the current one)."""
+        from ..ops.bm25 import encode_queries_host
+
+        with span("engine.tokenize", request=request):
+            return encode_queries_host(_bm25_texts(query_texts, question, max_q),
+                                       vocab_bits=self.index.sparse.vocab_bits)
 
     def search(
         self,
@@ -779,11 +797,12 @@ class QueryEngine:
         (numpy or tensor).  ``with_details=True`` also returns the
         observability dict of :func:`search_device`: feed it to
         :meth:`materialize_details`."""
-        req = self.prepare(query_embs, company, question, selected_years,
-                           cfg, query_texts)
-        cands, details = search_device(self.index, req, cfg, self.window,
-                                       ivf=self.ivf if cfg.use_ivf else None,
-                                       hier=self.hier)
+        with request_scope():
+            req = self.prepare(query_embs, company, question, selected_years,
+                               cfg, query_texts)
+            cands, details = search_device(self.index, req, cfg, self.window,
+                                           ivf=self.ivf if cfg.use_ivf else None,
+                                           hier=self.hier)
         return (cands, details) if with_details else cands
 
     def search_many(
@@ -799,32 +818,40 @@ class QueryEngine:
         :func:`search_many_device`; one ``FusedCandidates`` per request,
         equal to R :meth:`search` calls.  The JAX engine pads the request
         axis to a power of two to bound its jit shapes; eager PyTorch
-        compiles nothing per shape, so exactly R requests are stacked."""
-        doc_ids = self.routed_docs(company, question, selected_years)
-        if not doc_ids:
-            raise ValueError(f"No report found with '{company}' company name.")
-        R = len(query_embs_list)
-        if R == 0:
-            return []
-        dm, dv, row_slot, ws, wl, sd = self.doc_masks(doc_ids, cfg.max_docs)
-        max_q = cfg.max_queries
-        with_terms = cfg.use_bm25 and self.index.sparse is not None
-        reqs = []
-        for r in range(R):
-            q, qv = self._pad_request(query_embs_list[r], max_q)
-            q_terms = None
-            if with_terms:
-                from ..ops.bm25 import encode_queries_host
+        compiles nothing per shape, so exactly R requests are stacked.
 
-                qt = (query_texts_list[r] if query_texts_list is not None
-                      and r < len(query_texts_list) else None)
-                q_terms = torch.from_numpy(encode_queries_host(
-                    _bm25_texts(qt, question, max_q),
-                    vocab_bits=self.index.sparse.vocab_bits)).to(self.device)
-            reqs.append(Request(q, qv, dm, dv, q_terms, row_slot, ws, wl, sd))
-        return search_many_device(self.index, reqs, cfg, self.window,
-                                  ivf=self.ivf if cfg.use_ivf else None,
-                                  hier=self.hier)
+        The span ``engine.prepare`` covers the shared route and every
+        request's term ids and upload (``count`` = R); under a
+        ``MicroBatcher`` dispatch each request's spans carry its own id."""
+        R = len(query_embs_list)
+        with request_scope():
+            with span("engine.prepare", count=R):
+                with span("engine.route"):
+                    doc_ids = self.routed_docs(company, question, selected_years)
+                    if not doc_ids:
+                        raise ValueError(
+                            f"No report found with '{company}' company name.")
+                    if R == 0:
+                        return []
+                    dm, dv, row_slot, ws, wl, sd = self.doc_masks(doc_ids, cfg.max_docs)
+                max_q = cfg.max_queries
+                with_terms = cfg.use_bm25 and self.index.sparse is not None
+                reqs = []
+                for r in range(R):
+                    rid = member(r)
+                    terms = None
+                    if with_terms:
+                        qt = (query_texts_list[r] if query_texts_list is not None
+                              and r < len(query_texts_list) else None)
+                        terms = self._term_ids(qt, question, max_q, rid)
+                    with span("engine.upload", request=rid):
+                        q, qv = self._pad_request(query_embs_list[r], max_q)
+                        q_terms = (None if terms is None
+                                   else torch.from_numpy(terms).to(self.device))
+                    reqs.append(Request(q, qv, dm, dv, q_terms, row_slot, ws, wl, sd))
+            return search_many_device(self.index, reqs, cfg, self.window,
+                                      ivf=self.ivf if cfg.use_ivf else None,
+                                      hier=self.hier)
 
     # -- materialisation -------------------------------------------------
     def materialize(

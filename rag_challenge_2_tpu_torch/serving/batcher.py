@@ -17,7 +17,11 @@ beyond ``max_batch`` is led by a promoted waiter, so no request is ever
 dropped.
 
 Semantics are identical to unbatched ``QueryEngine.search``
-(tests/test_torch_batcher.py).  The JAX package turns batching off above a
+(tests/test_torch_batcher.py).  While the program's spans are collected
+(``utils/profiling.py``) each caller records ``batcher.wait`` on its own
+thread, from enqueueing its request to its group's dispatch starting,
+and the leader opens ``batcher.dispatch`` around the batched search,
+listing the requests it serves.  The JAX package turns batching off above a
 corpus size it measured on its own hardware; the port has no such rule and
 always coalesces.
 """
@@ -31,10 +35,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..retrieval.engine import QueryEngine, SearchConfig
+from ..utils import profiling
 
 
 class _Pending:
-    __slots__ = ("q_embs", "query_texts", "event", "result", "error")
+    __slots__ = ("q_embs", "query_texts", "event", "result", "error", "rid",
+                 "t_enqueued", "t_dispatched")
 
     def __init__(self, q_embs, query_texts):
         self.q_embs = q_embs
@@ -42,6 +48,16 @@ class _Pending:
         self.event = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        # the request's id and its wait's ends (tracing on; else None / 0)
+        self.rid = profiling.request_id()
+        self.t_enqueued = profiling.now_ns()
+        self.t_dispatched = 0
+
+    def waited(self) -> None:
+        """Record ``batcher.wait`` once the request's dispatch has started."""
+        if self.t_enqueued and self.t_dispatched:
+            profiling.record("batcher.wait", self.t_enqueued, self.t_dispatched,
+                             request=self.rid)
 
 
 class _Group:
@@ -132,6 +148,7 @@ class MicroBatcher:
         while True:
             if not leader:
                 item.event.wait()
+                item.waited()
                 if item.error is not None:
                     raise item.error
                 if item.result is not None:
@@ -156,15 +173,23 @@ class MicroBatcher:
                     group.leader_present = False
                     if not group.items:
                         del self._groups[key]
+            t_dispatched = profiling.now_ns()
+            for p in taken:
+                p.t_dispatched = t_dispatched
+            item.waited()
             try:
-                results = self.engine.search_many(
-                    [p.q_embs for p in taken],
-                    company,
-                    question,
-                    selected_years=selected_years,
-                    cfg=cfg,
-                    query_texts_list=[p.query_texts for p in taken],
-                )
+                with profiling.span("batcher.dispatch", request=item.rid,
+                                    count=len(taken)) as sp:
+                    if sp is not None:
+                        sp.attrs["requests"] = [p.rid for p in taken]
+                    results = self.engine.search_many(
+                        [p.q_embs for p in taken],
+                        company,
+                        question,
+                        selected_years=selected_years,
+                        cfg=cfg,
+                        query_texts_list=[p.query_texts for p in taken],
+                    )
                 with self._lock:
                     self.stats["dispatches"] += 1
                     self.stats["batched_requests"] += len(taken)

@@ -247,10 +247,11 @@ ROOT = Path(__file__).resolve().parent
 COMPANY = "金盘科技"
 YEARS = range(2020, 2026)
 K1_TOL = 1e-4
-# the H100 SXM's published peaks (dense): HBM bytes/s, int8 tensor-core
-# operations/s, f32 operations/s outside the tensor cores
+# the H100 SXM's published peaks (dense): HBM bytes/s, int8 and bf16
+# tensor-core operations/s, f32 operations/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
 
 
@@ -335,11 +336,24 @@ def bound(nbytes, ops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k3_bound(N, D, elt, code_rows, B, k, peak, row_arrays=1):
+def k3_bound(N, D, elt, code_rows, B, k, peak, row_arrays=1, planes=1):
     """K3's bound: the store and its per-row arrays read once, the codes
-    read once, B x k results written; 2 x code_rows x N x D operations."""
+    read once, B x k results written; 2 x code_rows x N x D operations for
+    each of ``planes`` query planes."""
     nbytes = N * D * elt + 4 * N * row_arrays + code_rows * D * elt + 8 * B * k
-    return bound(nbytes, 2 * code_rows * N * D, peak)
+    return bound(nbytes, planes * 2 * code_rows * N * D, peak)
+
+
+def k3_float_bound(N, D, dtype, B, k):
+    """K3's bound on an f32 or bf16 store with f32 queries: bf16 rows above
+    16 queries run ``bf16_tc``, three bf16 query planes' products at the
+    tensor cores' bf16 peak; the rest run ``scan_float``, f32 products at
+    the peak outside the tensor cores."""
+    import torch
+
+    tc = dtype == torch.bfloat16 and B > 16
+    return k3_bound(N, D, 2 if dtype == torch.bfloat16 else 4, B, B, k,
+                    BF16_OPS_S if tc else F32_OPS_S, 0, 3 if tc else 1)
 
 
 def share(ms, bnd):
@@ -1499,7 +1513,7 @@ def phase6a_1m(dev, flush, ctx5):
         ms = cuda_ms(lambda: stream_topk(q, e, 30), flush, reps=10)
         pms = cuda_ms(lambda: stream_topk_plain(q, e, 30), flush, reps=10)
         name = str(dt).split(".")[1]
-        bnd = k3_bound(N, D, e.element_size(), q.shape[0], q.shape[0], 30, F32_OPS_S, 0)
+        bnd = k3_float_bound(N, D, e.dtype, q.shape[0], 30)
         # yardstick: one matmul in the store's type (TF32 off), then topk
         lib = library_time("K3", lambda: torch.topk(
             torch.matmul(q.to(dt), e.T).float(), 30, dim=1), flush, reps=5)
@@ -1515,11 +1529,12 @@ def phase6a_1m(dev, flush, ctx5):
             qb = q128[:Bq].contiguous()
             zero_counts()
             err_b, _, _ = compare_k3(f"N={N} {name} B={Bq}", qb, e, 30)
-            check(k3_regimes()["float"] == 1,
-                  f"K3 {name} B={Bq}: one launch of the float regime: {k3_regimes()}")
+            want = "bf16_tc" if e.dtype == torch.bfloat16 and Bq > 16 else "float"
+            check(k3_regimes()[want] == 1,
+                  f"K3 {name} B={Bq}: one launch of the {want} regime: {k3_regimes()}")
             err_max = max(err_max, err_b)
             ms_b = cuda_ms(lambda: stream_topk(qb, e, 30), flush, reps=7)
-            bnd_b = k3_bound(N, D, e.element_size(), Bq, Bq, 30, F32_OPS_S, 0)
+            bnd_b = k3_float_bound(N, D, e.dtype, Bq, 30)
             by_batch[f"B={Bq}"] = dict(ms=ms_b, bound_ms=bnd_b[0], bound_by=bnd_b[1],
                                        err=err_b)
             log(f"K3 {name} by batch N={N} B={Bq}: max|diff| {err_b:.3g}  "
@@ -1856,19 +1871,22 @@ def deploy_slots_k3(eng, name, reqs, cfg):
             e_m, mask = emb, rq.doc_masks[m]
         for B in (96, big.shape[0]):
             qb = big[:B].contiguous()
-            cut = plan(B, False, False, e_m.shape[0], sm_count(emb.device), k,
-                       e_m.element_size()).cut
-            check(cut.query_tile == (128 if B > 96 else 96)
-                  and cut.box_rows < cut.tile_rows and cut.n_chunks > 1,
+            pl = plan(B, False, False, e_m.shape[0], sm_count(emb.device), k,
+                      e_m.element_size(), e_m.shape[1], e_m.data_ptr() % 16 == 0)
+            cut = pl.cut
+            check(pl.regime == "bf16_tc" if e_m.dtype == torch.bfloat16 else (
+                  cut.query_tile == (128 if B > 96 else 96)
+                  and cut.box_rows < cut.tile_rows and cut.n_chunks > 1),
                   f"search_many slot {m} ({name}, B={B}): expected chunks smaller than "
-                  f"a tile of the {B}-query layout: {cut}")
+                  f"a tile of the {B}-query layout, or bf16_tc on bf16 rows: {pl}")
             zero_counts()
             err, kv, ki = compare_k3(f"search_many slot {m} ({name}, {e_m.shape[0]} rows, "
                                      f"B={B})", qb, e_m, k, mask)
-            check(k3_regimes()["float"] == 1,
-                  f"search_many slot {m} ({name}): one float launch: {k3_regimes()}")
+            check(k3_regimes()[pl.regime] == 1,
+                  f"search_many slot {m} ({name}): one {pl.regime} launch: {k3_regimes()}")
             err_max = max(err_max, err)
-            shapes.append((B, e_m.shape[0], cut.box_rows, cut.n_chunks))
+            shapes.append((B, e_m.shape[0], cut.box_rows if cut else pl.tile_rows,
+                           pl.n_chunks))
         if mask is None:                    # kv, ki: the full stack's, run last
             dv, di = dense_topk(big, e_m, k)
             check(torch.equal(dv, kv) and torch.equal(di.long(), ki.long()),
@@ -1944,7 +1962,8 @@ def phase6c_engine(dev, gen, ctx3, data):
         regimes = k3_regimes()
         check(launches["stream_topk"] > 0 and launches["dense_topk"] == 0,
               f"search_many ({name}): 128 stacked queries must run K3: {launches}")
-        check((name == "int8") != (regimes["float"] == launches["stream_topk"]),
+        check((name == "int8") != (regimes["float" if name == "float32" else "bf16_tc"]
+                                   == launches["stream_topk"]),
               f"search_many ({name}): K3 ran the wrong regime: {regimes}")
         singles, t_one = wall(lambda: [
             e.search(qe, COMPANY, question, years, cfg, query_texts=tx)
@@ -2434,8 +2453,13 @@ def phase7a_hop_shapes(dev, gen):
                     lib = None if mask is not None else library_time(
                         "hop", lambda: torch.topk(
                             torch.matmul(qa.to(dt), emb.T).float(), k, dim=1), flush, reps=7)
+                    # K3 on bf16 rows (80 walkers, or 128 + 32) runs bf16_tc:
+                    # three query planes' products at the bf16 tensor-core peak
+                    tc = dt == torch.bfloat16 and not want["dense_topk"]
                     bnd = bound(N * D * emb.element_size() + A * D * 4 + 8 * A * k
-                                + (N if mask is not None else 0), 2 * A * N * D, F32_OPS_S)
+                                + (N if mask is not None else 0),
+                                (3 if tc else 1) * 2 * A * N * D,
+                                BF16_OPS_S if tc else F32_OPS_S)
                     out[name] = dict(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bnd[0],
                                      bound_by=bnd[1], err=err,
                                      kernel="K1" if want["dense_topk"] else "K3")
@@ -3831,7 +3855,6 @@ def phase9_pipeline(dev, model, seed, work, n_pages=PIPE_PAGES):
 
 # --------------------------------------------------------------- phase 10
 
-BF16_OPS_S = 989e12          # the H100 SXM's dense bf16 tensor-core peak
 # the recorded quality eval (docs/ENCODER_QUALITY.json, seed 0 unless noted):
 # quality numbers carry over between devices, times do not
 QUALITY_RECORD = {"bm25": (0.905, 0.3801), "encoder_random_init": (0.305, 0.1396),

@@ -21,9 +21,16 @@
 //     at the tensor-core peak, so the read bounds it here too, closely.
 //     What is left is the epilogue: B x N scores to test against the
 //     queries' k-th values, ~1.3e9 at 10M rows.
-//   * f32 and bf16 (B up to 128): bound by the CUDA cores' IEEE f32 FMA
-//     rate (no TF32): 130 G FMA at 1M x 1024, B = 127, ~3.9 ms at peak;
-//     below ~16 queries by the store read.
+//   * f32 (B up to 128): bound by the CUDA cores' IEEE f32 FMA rate (no
+//     TF32): 130 G FMA at 1M x 1024, B = 127, ~3.9 ms at peak; below ~16
+//     queries by the store read.  So was bf16, until the bf16_tc regime.
+//   * bf16 above 16 queries (bf16_tc): the exact split of each f32 query
+//     into three bf16 planes makes it three bf16 products on the tensor
+//     cores: 3 x 2 B N D = 1.17 TFLOP at 1.5M x 1024, B = 127, 1.18 ms at
+//     989 TFLOP/s, against 0.917 ms to read the 3.07 GB store.  Each stage
+//     brings the query planes' D-chunk (3 x 128 queries x 128 bytes) beside
+//     the store rows' (16 KB a 128-row tile), so the planes, re-read from L2
+//     for every stage, are three times the bytes of one tile's rows.
 //
 // What the int8 design does about it (kernel scan_i8):
 //   * products on the tensor cores: wgmma m64nNk32 s8 x s8 -> s32, with the
@@ -69,13 +76,65 @@
 //     neighbouring queries share one 32-byte sector and the gathers of a
 //     thread's values are independent loads.
 
-// The f32 and bf16 forms run scan_float (float_scan.cuh, shared with K1;
-// its source note sets out the layout): the query tile picked from the
-// batch (8 to 128 queries), 16 queries x 4 rows of accumulators per thread
-// at the large tiles (one shared-memory wavefront per 8-16 FMAs), one store
-// read per call on a persistent grid, TMA stages, and the register gate
-// with candidate lists.  They are bound by the f32 FMA rate of the CUDA
-// cores above ~16 queries.
+// The f32 form, bf16 at up to 16 queries and stores TMA cannot read as
+// bf16 boxes (D % 8 != 0, a base off 16 bytes) run scan_float
+// (float_scan.cuh, shared with K1; its source note sets out the layout):
+// the query tile picked from the batch (8 to 128 queries), 16 queries x 4
+// rows of accumulators per thread at the large tiles (one shared-memory
+// wavefront per 8-16 FMAs), one store read per call on a persistent grid,
+// TMA stages, and the register gate with candidate lists.  The f32 form is
+// bound by the f32 FMA rate of the CUDA cores above ~16 queries.
+//
+// The bf16 form above 16 queries runs scan_bf16_tc (regime bf16_tc):
+//   * the split: a small kernel writes the queries as three bf16 planes
+//     [3][query tile][D] (hi = bf16(q), mid = bf16(q - hi), lo = bf16(q -
+//     hi - mid), zeros past B).  Both subtractions are exact in f32 and three
+//     8-bit significands hold f32's 24, so hi + mid + lo == q for every q of
+//     |q| >= 2^-110; a bf16 x bf16 product is exact in f32.  The planes
+//     therefore sum the very products q_i r_i that scan_float forms with
+//     FMA; only the order and rounding of the f32 sums differ.
+//   * products: wgmma m64nNk16 bf16 x bf16 -> f32, store rows on the M side
+//     (two warpgroups, 64 rows each of a 128-row tile), the query tile (32,
+//     64, 96 or 128, the smallest that holds the batch) on the N side.  Per
+//     128-byte D-chunk (64 values) the lo, mid and hi products go into a
+//     fresh chunk sum (the smallest first), which is added to the row's f32
+//     total with __fadd_rn, as scan_float adds its chunks: the tensor cores'
+//     own rounding only ever acts on one chunk's partial sum.  The 128-query
+//     tile sums a chunk in two halves of 64 queries, so that the chunk sum
+//     and the totals of two tiles fit the registers (249 a thread).
+//   * loads: a persistent grid of one block per SM, each owning a
+//     contiguous row chunk for all queries (the store is read once), TMA
+//     stages (128-byte swizzle: the layout wgmma reads) in a ring of 2-7 on
+//     mbarriers.  A stage brings two 128-row tiles' D-chunk and the planes'
+//     once for both, where a ring of two such stages fits the shared memory
+//     (k <= 34 at 128 queries, every k below), else one tile's.  The last of
+//     the 8 warps to finish a slot refills it (a counter per slot), so no
+//     warp waits for a refill.
+//   * what limits it: the planes, re-read from L2 for every stage.  With one
+//     tile a stage and thread 0 refilling a slot after a block barrier, the
+//     time per stage followed the bytes it brings, ~32 ns per KB a block at
+//     every query tile (B = 17: 1.31 ms, 64: 1.76, 127: 2.88 ms over 1.5M
+//     rows: 4.2 TB/s from L2 into the 132 SMs), not the ring's depth nor
+//     the tensor cores.  Two tiles a stage cut the bytes a row by 37.5% at
+//     128 queries and took B = 127 to 2.71 ms (B = 17: 1.14, 64: 1.59): the
+//     tensor cores then run ~44% of each stage's time, the rest spent in
+//     the four drains of each warpgroup's wgmma queue a stage (a second
+//     chunk sum to overlap them would not fit the registers).  Clusters of
+//     two blocks sharing each stage's planes by TMA multicast (a slot
+//     refilled once both blocks freed it) measured slower: 3.88 ms at B =
+//     127 with thread 0 refilling, 4.70 ms with a producer warp (B = 17:
+//     2.60 / 2.84 ms); clusters of four fit 30 at once (120 of 132 SMs) and
+//     took 9.65 ms.  So each block loads its own planes.  (All on NVIDIA
+//     H100 80GB HBM3, 700 W.)
+//   * the epilogue calls scan_float's offer_grouped (into per-query
+//     candidate lists) and merge_warp_list (when one is full).  The first
+//     tile's radix-select threshold (counts met by shuffles and shared
+//     memory) and the register gate into a scratch list follow scan_float's
+//     and scan_i8's, written a third time for wgmma's accumulator layout:
+//     one helper over a value / row / query accessor for all three scans is
+//     still to come.  A row's score does not depend on where it sits in a
+//     tile or chunk, so copies of one row score the same bits and ties go
+//     to the lowest row.
 //
 // Every block writes its k candidates per query; a second pass merges
 // them under (value desc, row asc) in levels of 64 chunks, as K1's merge
@@ -843,6 +902,532 @@ int launch_i8_tile(int qn, const I8Params& p, int n_chunks, float* ov, int* oi,
   }
 }
 
+// ============================================================ bf16 path
+
+// ---- bf16_tc (scan_bf16_tc)
+constexpr int kTcRows = 128;       // store rows per tile (two warpgroups x 64)
+constexpr int kTcCandCap = 16;     // gated candidates buffered per query
+constexpr int kTcMinQueries = 17;  // the regime's smallest batch (below: scan_float)
+constexpr int kPlanes = 3;         // bf16 planes of an f32 query: hi, mid, lo
+constexpr int kTcChunkElems = kChunk / 2;   // bf16 values per D-chunk
+
+// f32 queries [B, D] into three bf16 planes [3][qn][D] (hi, mid, lo), zeros
+// past B.  hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid): each
+// subtraction is exact in f32 (its operands agree in their leading bits),
+// and three 8-bit significands hold f32's 24, so hi + mid + lo == x for
+// every x of |x| >= 2^-110 (below it lo falls under bf16's least subnormal
+// and rounds; see ops/stream_topk.split_bf16x3).
+__global__ void __launch_bounds__(kThreads)
+    split_bf16x3(const float* __restrict__ q, int B, int D, int qn,
+                 __nv_bfloat16* __restrict__ planes) {
+  const int n = qn * D;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
+    const float x = i < B * D ? q[i] : 0.f;
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+    const float r = __fsub_rn(x, __bfloat162float(hi));
+    const __nv_bfloat16 mid = __float2bfloat16_rn(r);
+    planes[i] = hi;
+    planes[n + i] = mid;
+    planes[2 * n + i] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+  }
+}
+
+// d[64 x N] (+)= A[64 x 16] . B[N x 16]^T, bf16 x bf16 -> f32, both operands
+// K-major in shared memory; scale_d 0 starts a fresh sum.  d[nt][e] is row
+// g (+ 8 for e >= 2) of the warp's 16 and column 8 nt + 2 tg + (e & 1), as
+// in the int8 forms.
+__device__ __forceinline__ void wgmma_bf16_n32(float (&d)[4][4], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[8][4], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n96(float (&d)[12][4], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 8][4], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  if constexpr (N == 32) wgmma_bf16_n32(d, a, b, scale_d);
+  if constexpr (N == 64) wgmma_bf16_n64(d, a, b, scale_d);
+  if constexpr (N == 96) wgmma_bf16_n96(d, a, b, scale_d);
+}
+
+struct TcParams {
+  const __nv_bfloat16* emb;  // [N, D] bf16 rows
+  const uint8_t* mask;       // [N] row mask shared by all queries, or null
+  int B;
+  int N;
+  int D;
+  int k;
+  int rows_per_chunk;
+  int n_stages;              // depth of the TMA ring
+  float* cand_v;             // [B, n_chunks, k]
+  int* cand_i;
+};
+
+// Byte offsets in the block's shared memory (after aligning it to 1024).
+struct TcSmem {
+  int stage;   // bytes of one ring stage: the row tiles' D-chunk + the planes'
+  int top_v, top_i, cand_v, cand_i, cnt, thr, pre, rcnt, meta, scratch, freed, bar;
+  int total;   // bytes to request, with the alignment slack
+};
+
+// `tiles`: row tiles a stage brings (1 or 2), sharing the stage's planes.
+__host__ __device__ inline TcSmem tc_smem(int qn, int tiles, int k, int n_stages) {
+  TcSmem L;
+  L.stage = tiles * kTcRows * kChunk + kPlanes * qn * kChunk;
+  int o = n_stages * L.stage;
+  L.top_v = o;
+  o += qn * k * 4;
+  L.top_i = o;
+  o += qn * k * 4;
+  L.cand_v = o;
+  o += qn * kTcCandCap * 4;
+  L.cand_i = o;
+  o += qn * kTcCandCap * 4;
+  L.cnt = o;
+  o += qn * 4;
+  L.thr = o;    // [qn] the first tile's threshold per query
+  o += qn * 4;
+  L.pre = o;    // [qn] its order key, bit by bit
+  o += qn * 4;
+  L.rcnt = o;   // [kWarps][qn] each warp's count of one bit step
+  o += kWarps * qn * 4;
+  L.freed = o;  // [kMaxStages] warps done with the slot's current stage
+  o += kMaxStages * 4;
+  L.meta = o;   // [2][tiles * kTcRows] 1 = a candidate row, per stage's tiles
+  o += 2 * tiles * kTcRows;
+  o = round_up(o, 8);
+  L.scratch = o;   // per thread: kScratch (value, bit) pairs of one gate pass
+  o += kThreads * kScratch * 8;
+  L.bar = o;
+  o += kMaxStages * 8;
+  L.total = o + 1024;
+  return L;
+}
+
+inline int tc_stages(int qn, int tiles, int k) {
+  const TcSmem L0 = tc_smem(qn, tiles, k, 0);
+  return std::max(0, std::min(kMaxStages, (kSmemBlockMax - L0.total) / L0.stage));
+}
+
+// kTiles row tiles of 128 a stage (two where a ring of two such stages
+// fits: the planes' bytes then serve 256 rows), each scored by both
+// warpgroups in turn against the stage's planes.
+template <int kQN, int kTiles>
+__global__ void __launch_bounds__(kThreads, 1)
+    scan_bf16_tc(const __grid_constant__ CUtensorMap emb_map,
+                 const __grid_constant__ CUtensorMap q_map, TcParams p) {
+  constexpr int kNT = kQN / 8;   // n8 column tiles of a tile's totals
+  // a 128-query tile sums a chunk in two halves of 64 queries, so that the
+  // chunk sum and the totals fit the registers
+  constexpr int kHalves = kQN == 128 ? 2 : 1;
+  constexpr int kQH = kQN / kHalves;   // queries of one half
+  constexpr int kNH = kNT / kHalves;   // its n8 column tiles
+  constexpr int kRows = kTiles * kTcRows;   // store rows of a stage
+  static_assert(kNT * 4 <= 64, "one pending bit per epilogue value");
+
+  // aligned to 1024 by an offset, not by integer arithmetic on the pointer,
+  // so that the accesses keep the shared address space (LDS / STS)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int k = p.k;
+  const int S = p.n_stages;
+  const TcSmem L = tc_smem(kQN, kTiles, k, S);
+  float* top_v = reinterpret_cast<float*>(smem + L.top_v);
+  int* top_i = reinterpret_cast<int*>(smem + L.top_i);
+  float* cand_v = reinterpret_cast<float*>(smem + L.cand_v);
+  int* cand_r = reinterpret_cast<int*>(smem + L.cand_i);
+  int* cnt = reinterpret_cast<int*>(smem + L.cnt);
+  float* thr = reinterpret_cast<float*>(smem + L.thr);
+  uint32_t* pre = reinterpret_cast<uint32_t*>(smem + L.pre);
+  int* rcnt = reinterpret_cast<int*>(smem + L.rcnt);
+  int* freed = reinterpret_cast<int*>(smem + L.freed);
+  unsigned char* meta = smem + L.meta;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;    // accumulator row group
+  const int tg = lane & 3;    // thread in the group
+  const int chunk = blockIdx.x;
+  const int n_chunks = gridDim.x;
+  const int r_begin = chunk * p.rows_per_chunk;
+  const int r_end = min(p.N, r_begin + p.rows_per_chunk);
+  const int n_groups = r_end > r_begin ? (r_end - r_begin + kRows - 1) / kRows : 0;
+  const int n_dch = (p.D + kTcChunkElems - 1) / kTcChunkElems;
+  const int total = n_groups * n_dch;
+  const int B = p.B;
+
+  for (int i = tid; i < kQN * k; i += kThreads) {
+    top_v[i] = kNegInf;
+    top_i[i] = -1;
+  }
+  for (int i = tid; i < kQN; i += kThreads) {
+    cnt[i] = 0;
+    thr[i] = -INFINITY;
+    pre[i] = 0u;
+  }
+  if (tid < kMaxStages) freed[tid] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(smem_u32(bars + s));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage s = (tile group s / n_dch, D-chunk s % n_dch) into ring slot s % S:
+  // the row tiles' D-chunk, then the three planes' [3][kQN][128 bytes]
+  auto issue = [&](int s) {
+    unsigned char* st = smem + (s % S) * L.stage;
+    const uint32_t bar = smem_u32(bars + s % S);
+    const int c = s % n_dch;
+    mbar_expect_tx(bar, L.stage);
+    tma_2d(smem_u32(st), &emb_map, c * kTcChunkElems, r_begin + (s / n_dch) * kRows, bar);
+    tma_3d(smem_u32(st + kRows * kChunk), &q_map, c * kTcChunkElems, 0, 0, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S && s < total; ++s) issue(s);
+  }
+
+  // every query's buffered candidates into its sorted top-k (one warp per
+  // query), buffers emptied
+  auto merge_all = [&]() {
+    for (int q = warp; q < kQN; q += kWarps) {
+      const int n = cnt[q];
+      if (n == 0) continue;
+      merge_warp_list(top_v + q * k, top_i + q * k, k, cand_v + q * kTcCandCap,
+                      cand_r + q * kTcCandCap, min(n, kTcCandCap), lane);
+      if (lane == 0) cnt[q] = 0;
+    }
+  };
+
+  // ---- the epilogue of one tile (first: the block's first tile), its
+  // totals `tv` in registers: value nt * 4 + e is query 8 nt + 2 tg +
+  // (e & 1) at tile row lr0 + 8 (e >> 1)
+  const int lr0 = warp * 16 + g;
+  auto epilogue = [&](float (&tv)[kNT][4], const unsigned char* codes, int row0, bool first) {
+    int code[2];
+#pragma unroll
+    for (int r8 = 0; r8 < 2; ++r8) code[r8] = codes[lr0 + 8 * r8];
+    if (first) {
+      // The chunk's first tile meets empty lists.  Its threshold per query
+      // is the radix select of scan_float: the k-th largest value's order
+      // key bit by bit from the top, cut after kSeedBits bits (so it lies
+      // at or below the k-th value).  A query's values of one warp sit on
+      // the 8 lanes of one tg: their counts meet by shuffles, the warps'
+      // through shared memory.
+      for (int b = 0; b < kSeedBits; ++b) {
+        const uint32_t bit = 0x80000000u >> b;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int q = nt * 8 + tg * 2 + e1;
+            const uint32_t want = pre[q] | bit;
+            int c_q = 0;
+#pragma unroll
+            for (int r8 = 0; r8 < 2; ++r8)
+              c_q += code[r8] != 0 && order_key(tv[nt][r8 * 2 + e1]) >= want;
+            c_q += __shfl_xor_sync(kFull, c_q, 4);
+            c_q += __shfl_xor_sync(kFull, c_q, 8);
+            c_q += __shfl_xor_sync(kFull, c_q, 16);
+            if (g == 0) rcnt[warp * kQN + q] = c_q;
+          }
+        __syncthreads();
+        if (tid < kQN) {
+          int n_q = 0;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) n_q += rcnt[w * kQN + tid];
+          if (n_q >= k) pre[tid] |= bit;
+        }
+        __syncthreads();
+      }
+      if (tid < kQN && pre[tid] != 0u) {
+        const float t0 = key_value(pre[tid]);
+        if (t0 == t0) thr[tid] = t0;   // not a NaN pattern
+      }
+      __syncthreads();
+    }
+    // gate each value in registers against its query's k-th value (and the
+    // first tile's threshold); the ones that pass go to the query's
+    // candidate list, which is merged only once some list is full
+    float* sv = reinterpret_cast<float*>(smem + L.scratch) + tid * kScratch;
+    int* sb = reinterpret_cast<int*>(smem + L.scratch + kThreads * kScratch * 4) +
+              tid * kScratch;
+    // the values in `todo`, through as many passes of this thread as its
+    // scratch list needs.  Returns the values whose candidate list was full
+    auto gate = [&](uint64_t todo) -> uint64_t {
+      uint64_t full = 0;
+      while (todo != 0ull) {
+        uint64_t later = 0;
+        int n = 0;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            if (((todo >> (nt * 4 + e1)) & 5ull) == 0) continue;   // both rows done
+            const int q = nt * 8 + tg * 2 + e1;
+            const float kv = fmaxf(top_v[q * k + k - 1], thr[q]);
+#pragma unroll
+            for (int r8 = 0; r8 < 2; ++r8) {
+              const int bit = nt * 4 + r8 * 2 + e1;
+              const float v = tv[nt][r8 * 2 + e1];
+              if (((todo >> bit) & 1ull) && v >= kv) {
+                if (n < kScratch) {
+                  sv[n] = v;
+                  sb[n] = bit;
+                  ++n;
+                } else {
+                  later |= 1ull << bit;   // no scratch slot: next pass
+                }
+              }
+            }
+          }
+        // the noted values, in a rolled loop: one call site
+        for (int m = 0; m < n; ++m) {
+          const int bit = sb[m];
+          if (!offer_grouped(sv[m], row0 + lr0 + 8 * ((bit >> 1) & 1),
+                             (bit >> 2) * 8 + tg * 2 + (bit & 1), k, top_v, top_i, cnt,
+                             cand_v, cand_r, kTcCandCap))
+            full |= 1ull << bit;
+        }
+        todo = later;
+      }
+      return full;
+    };
+    // rows that are no candidates and queries past B never enter
+    uint64_t todo = 0;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (nt * 8 + tg * 2 + (e & 1) < B && code[e >> 1] != 0) todo |= 1ull << (nt * 4 + e);
+    while (true) {
+      todo = gate(todo);
+      if (!__syncthreads_or(todo != 0ull)) break;
+      merge_all();  // every list: fresh k-th values let fewer values through
+      __syncthreads();
+    }
+  };
+
+  float tot[kTiles][kNT][4];   // the tiles' scores over the D-chunks so far
+  float acc[kNH][4];           // one D-chunk's sum for one tile and half
+#pragma unroll
+  for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  for (int s = 0; s < total; ++s) {
+    const int c = s % n_dch;
+    const int grp = s / n_dch;
+    const int slot = s % S;
+    const int row0 = r_begin + grp * kRows;
+    unsigned char* st = smem + slot * L.stage;
+    if (c == 0) {
+      // the stage's rows, read by the epilogue after its barrier: 1 for a
+      // row of the chunk that the mask keeps
+      for (int i = tid; i < kRows; i += kThreads) {
+        const int row = row0 + i;
+        meta[(grp & 1) * kRows + i] =
+            row < r_end && (p.mask == nullptr || p.mask[row] != 0) ? 1 : 0;
+      }
+#pragma unroll
+      for (int tt = 0; tt < kTiles; ++tt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[tt][nt][e] = 0.f;
+    }
+    mbar_wait(smem_u32(bars + slot), (s / S) & 1);
+
+    // ---- products: for each tile and half of the queries, the chunk's sum
+    // of lo, mid and hi (the smallest first), 4 k-steps of 16 bf16 each, the
+    // warpgroup's 64 rows of the tile; the tensor cores round only this
+    // partial sum, which is then added to the row's total in IEEE f32, as
+    // scan_float adds its chunks
+#pragma unroll
+    for (int tt = 0; tt < kTiles; ++tt) {
+      const uint64_t da = smem_desc(st + (tt * kTcRows + (warp / 4) * 64) * kChunk);
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h) {
+        wgmma_fence();
+#pragma unroll
+        for (int pl = kPlanes - 1; pl >= 0; --pl) {
+          const uint64_t db =
+              smem_desc(st + kRows * kChunk + (pl * kQN + h * kQH) * kChunk);
+#pragma unroll
+          for (int j = 0; j < kChunk / 32; ++j)
+            wgmma_bf16<kQH>(acc, da + 2 * j, db + 2 * j, pl == kPlanes - 1 && j == 0 ? 0 : 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int nt = 0; nt < kNH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tot[tt][h * kNH + nt][e] = __fadd_rn(tot[tt][h * kNH + nt][e], acc[nt][e]);
+      }
+    }
+    // this warp is done with the slot; the last of the 8 warps to be done
+    // refills it, so no warp waits for a refill
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(freed + slot, 1) == kWarps - 1) {
+        freed[slot] = 0;
+        __threadfence_block();
+        if (s + S < total) issue(s + S);
+      }
+    }
+    if (c != n_dch - 1) continue;
+
+    __syncthreads();   // the stage's row codes
+#pragma unroll
+    for (int tt = 0; tt < kTiles; ++tt)
+      epilogue(tot[tt], meta + (grp & 1) * kRows + tt * kTcRows, row0 + tt * kTcRows,
+               grp == 0 && tt == 0);
+  }
+  merge_all();
+  __syncthreads();
+
+  for (int q = warp; q < kQN && q < B; q += kWarps) {
+    for (int j = lane; j < k; j += 32) {
+      const size_t o = ((size_t)q * n_chunks + chunk) * k + j;
+      p.cand_v[o] = top_v[q * k + j];
+      p.cand_i[o] = top_i[q * k + j];
+    }
+  }
+}
+
+template <int kQN, int kTiles>
+int launch_bf16_tc(TcParams p, const float* q, __nv_bfloat16* planes, int n_chunks,
+                   float* out_v, int* out_i, cudaStream_t stream) {
+  if (p.B > kQN || p.D % 8 != 0 || reinterpret_cast<uintptr_t>(p.emb) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(planes) % 16 != 0 || p.rows_per_chunk % (kTiles * kTcRows))
+    return (int)cudaErrorInvalidValue;
+  const int stages = tc_stages(kQN, kTiles, p.k);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  p.n_stages = stages;
+  const TcSmem L = tc_smem(kQN, kTiles, p.k, stages);
+  const int n = kQN * p.D;
+  split_bf16x3<<<std::min((n + kThreads - 1) / kThreads, 1024), kThreads, 0, stream>>>(
+      q, p.B, p.D, kQN, planes);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap emb_map, q_map;
+  std::memset(&emb_map, 0, sizeof(emb_map));
+  std::memset(&q_map, 0, sizeof(q_map));
+  const cuuint32_t ones[3] = {1, 1, 1};
+  // the store [N, D] in boxes of 64 values (128 bytes) x the stage's rows,
+  // zeros past N and D
+  const cuuint64_t e_dim[2] = {(cuuint64_t)p.D, (cuuint64_t)p.N};
+  const cuuint64_t e_str[1] = {(cuuint64_t)p.D * 2};
+  const cuuint32_t e_box[2] = {(cuuint32_t)kTcChunkElems, (cuuint32_t)(kTiles * kTcRows)};
+  CUresult r = cuTensorMapEncodeTiled(
+      &emb_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<__nv_bfloat16*>(p.emb), e_dim, e_str, e_box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return kTmaError + (int)r;
+  // the planes [3][kQN][D] in boxes of 64 values x kQN x 3
+  const cuuint64_t q_dim[3] = {(cuuint64_t)p.D, (cuuint64_t)kQN, (cuuint64_t)kPlanes};
+  const cuuint64_t q_str[2] = {(cuuint64_t)p.D * 2, (cuuint64_t)kQN * p.D * 2};
+  const cuuint32_t q_box[3] = {(cuuint32_t)kTcChunkElems, (cuuint32_t)kQN,
+                               (cuuint32_t)kPlanes};
+  r = cuTensorMapEncodeTiled(
+      &q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, planes, q_dim, q_str, q_box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return kTmaError + (int)r;
+  auto kernel = scan_bf16_tc<kQN, kTiles>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<n_chunks, kThreads, L.total, stream>>>(emb_map, q_map, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)merge_levels(p.cand_v, p.cand_i, p.B, n_chunks, p.k, out_v, out_i, stream);
+}
+
+// `tiles`: row tiles a stage brings, 1 or 2 (the planner's choice).
+int launch_bf16_tc_tile(int qn, int tiles, const TcParams& p, const float* q,
+                        __nv_bfloat16* planes, int n_chunks, float* ov, int* oi,
+                        cudaStream_t s) {
+  switch (qn * 4 + tiles) {
+    case 32 * 4 + 1: return launch_bf16_tc<32, 1>(p, q, planes, n_chunks, ov, oi, s);
+    case 32 * 4 + 2: return launch_bf16_tc<32, 2>(p, q, planes, n_chunks, ov, oi, s);
+    case 64 * 4 + 1: return launch_bf16_tc<64, 1>(p, q, planes, n_chunks, ov, oi, s);
+    case 64 * 4 + 2: return launch_bf16_tc<64, 2>(p, q, planes, n_chunks, ov, oi, s);
+    case 96 * 4 + 1: return launch_bf16_tc<96, 1>(p, q, planes, n_chunks, ov, oi, s);
+    case 96 * 4 + 2: return launch_bf16_tc<96, 2>(p, q, planes, n_chunks, ov, oi, s);
+    case 128 * 4 + 1: return launch_bf16_tc<128, 1>(p, q, planes, n_chunks, ov, oi, s);
+    case 128 * 4 + 2: return launch_bf16_tc<128, 2>(p, q, planes, n_chunks, ov, oi, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -867,6 +1452,22 @@ int rc2_stream_topk_float_stages(int query_tile, int warp_queries, int tile_rows
                            blocks_per_sm);
 }
 
+// The bf16_tc regime's constants, in this order: store rows per tile, the
+// four query tiles, candidate slots per query, the regime's smallest batch,
+// the planes of a query.  Returns the count.
+int rc2_stream_topk_tc_constants(int* out, int n) {
+  const int c[] = {kTcRows, 32, 64, 96, 128, kTcCandCap, kTcMinQueries, kPlanes};
+  const int m = (int)(sizeof(c) / sizeof(c[0]));
+  for (int i = 0; i < n && i < m; ++i) out[i] = c[i];
+  return m;
+}
+
+// The stage count scan_bf16_tc gives a query tile with `tiles` row tiles a
+// stage at k, or < 2 when it does not fit.
+int rc2_stream_topk_tc_stages(int query_tile, int tiles, int k) {
+  return tc_stages(query_tile, tiles, k);
+}
+
 // Scratch entries per (query, k) slot: the chunks' candidates plus the
 // first merge level's groups.
 int rc2_stream_topk_scratch_chunks(int n_chunks) {
@@ -874,7 +1475,10 @@ int rc2_stream_topk_scratch_chunks(int n_chunks) {
 }
 
 // kind: 0 f32, 1 bf16, 2 int8 store.  mode: 0 float, 1 int8, 2 int8 2-pass
-// (q holds 2B stacked rows: the B hi rows, then the B lo rows).  The int8
+// (q holds 2B stacked rows: the B hi rows, then the B lo rows), 3 bf16_tc
+// (a bf16 store, f32 queries split into `planes`, scratch of 3 x
+// query_tile x D bf16 on 16 bytes, by the call; box_rows: the rows of a
+// stage, 128 or 256).  The int8
 // modes take q_scale (and q_scale_lo) [B], row_scale [N]; assign [N] and
 // qc_t [n_codes, B] (the bias q . centroids^T, transposed) add the residual
 // bias (both null without it).  query_tile picks the int8 regime: 16
@@ -885,7 +1489,8 @@ int rc2_stream_topk_scratch_chunks(int n_chunks) {
 int rc2_stream_topk(const void* q, const void* emb, int kind, int mode,
                     const void* q_scale, const void* q_scale_lo,
                     const void* row_scale, const void* assign, const void* qc_t,
-                    const void* mask, int B, int N, int D, int k, int query_tile,
+                    const void* mask, void* planes, int B, int N, int D, int k,
+                    int query_tile,
                     int rows_per_chunk, int n_chunks, int box_rows, int blocks_per_sm,
                     void* cand_v, void* cand_i,
                     void* out_v, void* out_i, void* stream) {
@@ -916,6 +1521,22 @@ int rc2_stream_topk(const void* q, const void* emb, int kind, int mode,
         launch_scan_float<false>(p, kind == 1, query_tile, n_chunks, blocks_per_sm, s);
     if (rc != 0) return rc;
     return (int)merge_levels(p.cand_v, p.cand_i, B, n_chunks, k, ov, oi, s);
+  }
+  if (mode == 3) {
+    if (kind != 1 || planes == nullptr || B < kTcMinQueries) return (int)cudaErrorInvalidValue;
+    TcParams p;
+    p.emb = static_cast<const __nv_bfloat16*>(emb);
+    p.mask = static_cast<const uint8_t*>(mask);
+    p.B = B;
+    p.N = N;
+    p.D = D;
+    p.k = k;
+    p.rows_per_chunk = rows_per_chunk;
+    p.n_stages = 0;
+    p.cand_v = static_cast<float*>(cand_v);
+    p.cand_i = static_cast<int*>(cand_i);
+    return launch_bf16_tc_tile(query_tile, box_rows / kTcRows, p, static_cast<const float*>(q),
+                               static_cast<__nv_bfloat16*>(planes), n_chunks, ov, oi, s);
   }
   if (kind != 2 || (mode != 1 && mode != 2)) return (int)cudaErrorInvalidValue;
   I8Params p;

@@ -1,6 +1,7 @@
 """The planner of ``scan_float`` (``csrc/float_scan.cuh``), the f32 / bf16
-scoring kernel that K1 (:mod:`.dense_topk`) and K3's f32 / bf16 forms
-(:mod:`.stream_topk`) both launch.
+scoring kernel that K1 (:mod:`.dense_topk`) and K3's float regime
+(:mod:`.stream_topk`: f32 stores, and bf16 stores that the bf16_tc regime
+does not take) both launch.
 
 The kernel takes its whole launch geometry from here, so that the CPU
 tests reach it: the query tile sized to the batch, the rows a thread

@@ -13,10 +13,15 @@ batch: *small* (at most 16 code rows: B <= 16, or B <= 8 in 2-pass; the
 engine's routed slots) keeps the code block resident in shared memory and
 is bound by the store read; *large* (up to 256 code rows) stages the
 query's D-chunks beside 128-row store tiles.  Either reads the store from
-HBM once per call.  The f32 and bf16 forms (regime *float*) run
+HBM once per call.  A bf16 store above 16 queries (regime *bf16_tc*)
+runs ``scan_bf16_tc`` on the tensor cores: each f32 query is split
+exactly into three bf16 planes (:func:`split_bf16x3`), and ``wgmma``
+sums the exact bf16 products of each plane against the streamed rows, a
+D-chunk at a time, into f32 totals.  f32 stores, bf16 stores at up to 16
+queries and store views TMA cannot take (regime *float*) run
 ``scan_float`` of ``csrc/float_scan.cuh``, the kernel K1 shares: IEEE f32
-FMA on the CUDA cores, a query tile of 8 to 128 picked from the batch and
-one store read per call as well.
+FMA on the CUDA cores, a query tile of 8 to 128 picked from the batch.
+Every form reads the store from HBM once per call.
 
 One wrapper, :func:`stream_topk`, takes every form the scan has:
 
@@ -46,7 +51,9 @@ import torch
 from .. import device  # noqa: F401  (full-f32 matmuls for the plain version)
 from ..utils import kernels
 from ..utils.profiling import note
-from .float_scan import FLOAT_CONSTANTS, FloatPlan, float_plan, sm_count
+from .float_scan import (
+    CHUNK_BYTES, FLOAT_CONSTANTS, MAX_STAGES, SCRATCH, SMEM_BLOCK_MAX, THREADS, WARPS,
+    FloatPlan, float_plan, sm_count)
 from .quant import I8_EXACT_F32_DIM, i8_dot, int8_epilogue
 from .topk import BLOCK_ROWS, KERNEL_MAX_K, NEG_INF, stable_topk
 
@@ -66,7 +73,14 @@ CAND_CAP = 16               # gated candidates buffered per query (int8)
 MERGE_GROUP = 64            # chunk lists merged per block and level
 CONSTANTS = (INT8_TILE_ROWS, SMALL_CODE_ROWS, SMALL_BLOCKS_PER_SM,
              LARGE_BLOCKS_PER_SM, *LARGE_QUERY_TILES, CAND_CAP, *FLOAT_CONSTANTS)
-REGIMES = ("float", "int8_small", "int8_large")
+# The bf16_tc regime's (``rc2_stream_topk_tc_constants``, in this order).
+TC_TILE_ROWS = 128          # store rows per tile: two warpgroups x 64 (1 or 2 a stage)
+TC_QUERY_TILES = (32, 64, 96, 128)   # queries on wgmma's N side
+TC_CAND_CAP = 16            # gated candidates buffered per query
+TC_MIN_QUERIES = 17         # the regime's smallest batch (at most 16: scan_float)
+TC_PLANES = 3               # bf16 planes of an f32 query: hi, mid, lo
+TC_CONSTANTS = (TC_TILE_ROWS, *TC_QUERY_TILES, TC_CAND_CAP, TC_MIN_QUERIES, TC_PLANES)
+REGIMES = ("float", "int8_small", "int8_large", "bf16_tc")
 
 
 @dataclass(frozen=True)
@@ -83,28 +97,76 @@ class Plan:
     cut: Optional[FloatPlan] = None
 
 
+def tc_takes(B: int, elt: int, D: int, aligned: bool) -> bool:
+    """Whether the bf16_tc regime takes the call: a bf16 store (``elt``
+    2), more than 16 queries, and a store TMA can read as bf16 boxes (rows
+    of ``D`` % 8 == 0 values, a base on 16 bytes)."""
+    return (elt == 2 and TC_MIN_QUERIES <= B <= max(TC_QUERY_TILES) and D > 0
+            and D % 8 == 0 and aligned)
+
+
+def tc_smem_bytes(query_tile: int, tiles: int, k: int, stages: int) -> Tuple[int, int]:
+    """``(bytes of one stage, bytes the block requests)`` of
+    ``scan_bf16_tc`` with ``tiles`` row tiles a stage: the header's
+    ``tc_smem``."""
+    stage = tiles * TC_TILE_ROWS * CHUNK_BYTES + TC_PLANES * query_tile * CHUNK_BYTES
+    o = stages * stage
+    o += 2 * query_tile * k * 4                 # the carried top-k
+    o += 2 * query_tile * TC_CAND_CAP * 4       # the candidate lists
+    o += 3 * query_tile * 4                     # counts, thresholds, their keys
+    o += WARPS * query_tile * 4                 # the radix select's counts
+    o += MAX_STAGES * 4                         # warps done with each slot
+    o += 2 * tiles * TC_TILE_ROWS               # row codes, two stages
+    o = -(-o // 8) * 8
+    o += THREADS * SCRATCH * 8                  # the gate's scratch lists
+    o += MAX_STAGES * 8                         # mbarriers
+    return stage, o + 1024                      # + the alignment slack
+
+
+def tc_stages(query_tile: int, tiles: int, k: int) -> int:
+    """The ring depth of ``scan_bf16_tc`` (one block per SM) with ``tiles``
+    row tiles a stage; below 2 it does not fit (the header's
+    ``tc_stages``)."""
+    stage, fixed = tc_smem_bytes(query_tile, tiles, k, 0)
+    return max(0, min(MAX_STAGES, (SMEM_BLOCK_MAX - fixed) // stage))
+
+
 def plan(B: int, two_pass: bool, int8: bool, N: int, sms: int, k: int = 30,
-         elt: int = 4) -> Plan:
+         elt: int = 4, D: Optional[int] = None, aligned: Optional[bool] = None) -> Plan:
     """The kernel's grid for B logical queries over N rows on a card of
     ``sms`` SMs.  int8: the small regime up to 16 code rows (2B in
     2-pass), else the smallest large query tile that holds them; a
     persistent grid of one (large) or two (small) blocks per SM.
-    f32 / bf16 (``elt`` bytes per element, top ``k``): the query tile of 8
-    to 128 that holds the batch, as ``float_scan.float_plan`` cuts it.
+    bf16 (``elt`` 2) above 16 queries, rows of ``D`` % 8 == 0 values and
+    a base on 16 bytes (``aligned``): bf16_tc, the smallest of
+    :data:`TC_QUERY_TILES` that holds the batch on one block per SM, two
+    128-row tiles a stage where a ring of two such stages fits (the
+    planes' bytes then serve twice the rows), else one.
+    Other f32 / bf16 calls (``elt`` bytes per element, top ``k``): the
+    query tile of 8 to 128 that holds the batch, as
+    ``float_scan.float_plan`` cuts it.  A bf16 plan needs ``D`` and
+    ``aligned``, as :func:`stream_topk` passes them from the store, so no
+    caller plans a regime the wrapper would not run.
     Either way each block owns a contiguous row chunk for all queries, so
     the call reads the store once."""
-    if not int8:
+    if not int8 and elt == 2 and (D is None or aligned is None):
+        raise ValueError("a bf16 store's plan needs its row width D and whether "
+                         "its base is on 16 bytes (aligned)")
+    if not int8 and (elt != 2 or not tc_takes(B, elt, D, aligned)):
         cut = float_plan(B, N, min(k, N), elt, sms)
         return Plan("float", cut.query_tile, cut.tile_rows, cut.rows_per_chunk,
                     cut.n_chunks, cut.store_passes, cut)
     rows = 2 * B if two_pass else B
-    if rows <= SMALL_CODE_ROWS:
+    tile_rows = INT8_TILE_ROWS
+    if not int8:
+        regime, tile_q, blocks = "bf16_tc", min(t for t in TC_QUERY_TILES if t >= B), sms
+        tile_rows = TC_TILE_ROWS * (2 if tc_stages(tile_q, 2, min(k, N)) >= 2 else 1)
+    elif rows <= SMALL_CODE_ROWS:
         regime, tile_q, blocks = "int8_small", SMALL_CODE_ROWS, SMALL_BLOCKS_PER_SM * sms
     else:
         regime = "int8_large"
         tile_q = min(t for t in LARGE_QUERY_TILES if t >= rows)
         blocks = LARGE_BLOCKS_PER_SM * sms
-    tile_rows = INT8_TILE_ROWS
     tiles = -(-N // tile_rows)
     chunks = max(1, min(tiles, blocks))
     rows_per_chunk = -(-tiles // chunks) * tile_rows
@@ -115,6 +177,29 @@ def scratch_chunks(n_chunks: int) -> int:
     """Scratch lists per query: the chunks' candidates plus the first merge
     level's groups (the library's ``rc2_stream_topk_scratch_chunks``)."""
     return n_chunks + -(-n_chunks // MERGE_GROUP)
+
+
+def split_bf16x3(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 ``q`` as three bf16 planes ``(hi, mid, lo)`` with ``hi + mid + lo
+    == q`` exactly: ``hi = bf16(q)``, ``mid = bf16(q - hi)``, ``lo = bf16(q
+    - hi - mid)``, each rounded to nearest even.  Both subtractions are
+    exact in f32 (their operands agree in the leading bits), and the three
+    8-bit significands cover f32's 24 (each remainder is below half a bf16
+    step of the value before it).  This is the plain version of the
+    library's ``split_bf16x3`` kernel, which ``scan_bf16_tc`` reads.
+
+    Exact for every f32 of magnitude at least 2^-110 (up to bf16's largest,
+    about 3.39e38, above which ``hi`` rounds to infinity).  Below 2^-110,
+    including every f32 subnormal, ``lo``'s last bits fall under bf16's
+    least subnormal (2^-133) and round: the split then misses ``q`` by at
+    most 2^-134, far under any unit-row score's rounding.  bf16 keeps
+    subnormals, so no plane is flushed to zero."""
+    q = q.float()
+    hi = q.to(torch.bfloat16)
+    r = q - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def block_scores(
@@ -193,9 +278,13 @@ def _lib():
         lib = kernels.load_library("stream_topk")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rc2_stream_topk.restype = I
-        lib.rc2_stream_topk.argtypes = [P, P, I, I] + [P] * 6 + [I] * 9 + [P] * 5
+        lib.rc2_stream_topk.argtypes = [P, P, I, I] + [P] * 7 + [I] * 9 + [P] * 5
         lib.rc2_stream_topk_constants.restype = I
         lib.rc2_stream_topk_constants.argtypes = [P, I]
+        lib.rc2_stream_topk_tc_constants.restype = I
+        lib.rc2_stream_topk_tc_constants.argtypes = [P, I]
+        lib.rc2_stream_topk_tc_stages.restype = I
+        lib.rc2_stream_topk_tc_stages.argtypes = [I, I, I]
         lib.rc2_stream_topk_scratch_chunks.restype = I
         lib.rc2_stream_topk_scratch_chunks.argtypes = [I]
         lib.rc2_stream_topk_float_stages.restype = I
@@ -209,6 +298,13 @@ def library_constants() -> Tuple[int, ...]:
     :data:`CONSTANTS` (builds the library)."""
     buf = (ctypes.c_int * 64)()
     n = _lib().rc2_stream_topk_constants(ctypes.cast(buf, ctypes.c_void_p), 64)
+    return tuple(buf[:n])
+
+
+def library_tc_constants() -> Tuple[int, ...]:
+    """The library's bf16_tc constants, in the order of :data:`TC_CONSTANTS`."""
+    buf = (ctypes.c_int * 16)()
+    n = _lib().rc2_stream_topk_tc_constants(ctypes.cast(buf, ctypes.c_void_p), 16)
     return tuple(buf[:n])
 
 
@@ -311,16 +407,22 @@ def stream_topk(
     N, D = emb.shape
     k_eff = min(k, N)
     two_pass = q_scale_lo is not None
-    mode = 0 if emb.dtype != torch.int8 else (2 if two_pass else 1)
+    int8 = emb.dtype == torch.int8
     lib = _lib()
     dev = q.device
-    pl = plan(B, two_pass, mode != 0, N, sm_count(dev), k_eff, emb.element_size())
+    pl = plan(B, two_pass, int8, N, sm_count(dev), k_eff, emb.element_size(), D,
+              emb.data_ptr() % 16 == 0)
     note(regime=pl.regime)
+    mode = 3 if pl.regime == "bf16_tc" else (0 if not int8 else (2 if two_pass else 1))
     cut = pl.cut
     # one buffer for the chunks' candidate lists and the merge levels'
-    # (values, then rows) and one for the result
+    # (values, then rows), then bf16_tc's query planes on 128 bytes, and
+    # one for the result
     n_cand = B * scratch_chunks(pl.n_chunks) * k_eff
-    cand = torch.empty(2 * n_cand, dtype=torch.float32, device=dev)
+    planes_at = -(-2 * n_cand // 32) * 32
+    n_planes = TC_PLANES * pl.query_tile * D // 2 if mode == 3 else 0
+    cand = torch.empty(planes_at + n_planes if n_planes else 2 * n_cand,
+                       dtype=torch.float32, device=dev)
     out = torch.empty((2, B, k_eff), dtype=torch.float32, device=dev)
     out_v, out_i = out[0], out[1].view(torch.int32)
     # the residual bias as [n_codes, B]: the four lanes that hold one row's
@@ -332,9 +434,10 @@ def stream_topk(
 
     rc = lib.rc2_stream_topk(
         q.data_ptr(), emb.data_ptr(), _KINDS[emb.dtype], mode, ptr(q_scale),
-        ptr(q_scale_lo), ptr(row_scale), ptr(assign), ptr(qc_t), ptr(mask), B, N, D,
+        ptr(q_scale_lo), ptr(row_scale), ptr(assign), ptr(qc_t), ptr(mask),
+        cand.data_ptr() + 4 * planes_at if n_planes else None, B, N, D,
         k_eff, pl.query_tile, pl.rows_per_chunk, pl.n_chunks,
-        cut.box_rows if cut else 0, cut.blocks_per_sm if cut else 0,
+        cut.box_rows if cut else pl.tile_rows, cut.blocks_per_sm if cut else 0,
         cand.data_ptr(), cand.data_ptr() + 4 * n_cand, out_v.data_ptr(),
         out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -345,7 +448,7 @@ def stream_topk(
 
 
 stream_topk.launches = 0
-# launches by regime ("float", "int8_small", "int8_large")
+# launches by regime ("float", "int8_small", "int8_large", "bf16_tc")
 stream_topk.regime_launches = dict.fromkeys(REGIMES, 0)
 
 

@@ -737,20 +737,26 @@ def test_k3_float_query_tile_boundaries(dev, mode, B, N, D, k):
     """K3's f32 / bf16 forms either side of each query tile's edge, on short,
     ragged and multi-tile stores, and on one routed slot of the deployment
     (1,700 full-width rows: a block owns less than a tile); masked rows
-    never enter."""
-    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+    never enter.  Both calls run the regime the planner picks: bf16_tc for
+    bf16 rows above 16 queries, else float."""
+    from rag_challenge_2_tpu_torch.ops.float_scan import sm_count
+    from rag_challenge_2_tpu_torch.ops.stream_topk import plan, stream_topk, stream_topk_plain
 
     g = torch.Generator(device="cpu").manual_seed(B + N + D)
     q, emb = _float_inputs(B, N, D, torch.float32 if mode == "f32" else torch.bfloat16,
                            g, dev)
     mask = (torch.rand(N, generator=g) > 0.3).to(dev)
-    before = stream_topk.regime_launches["float"]
+    regime = plan(B, False, False, N, sm_count(dev), k, emb.element_size(), D,
+                  emb.data_ptr() % 16 == 0).regime
+    assert regime == ("bf16_tc" if mode == "bf16" and B > 16 else "float")
+    before = dict(stream_topk.regime_launches)
     for m in (None, mask):
         kv, ki = stream_topk(q, emb, k, m)
         assert kv.shape == (B, min(k, N)) and ki.dtype == torch.int32
         _rows_equal_where_untied(kv, ki, lambda kk: stream_topk_plain(q, emb, kk, m), k)
     torch.cuda.synchronize()
-    assert stream_topk.regime_launches["float"] == before + 2
+    assert stream_topk.regime_launches[regime] == before[regime] + 2
+    assert sum(stream_topk.regime_launches.values()) == sum(before.values()) + 2
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
@@ -770,6 +776,173 @@ def test_k3_float_misaligned_view_and_ties(dev, mode):
     assert torch.equal(ki, pi)
     same = kv[:, 1:] == kv[:, :-1]
     assert bool(same.any()) and bool((ki[:, 1:][same] > ki[:, :-1][same]).all())
+
+
+# ---- K3's bf16_tc regime: bf16 rows on the tensor cores ---------------------
+
+def _bf16_call(q, emb, k, mask=None):
+    """K3 on a bf16 store above 16 queries: one bf16_tc launch, held
+    against the plain version (values within 1e-4, rows equal where
+    untied)."""
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    before = dict(stream_topk.regime_launches)
+    kv, ki = stream_topk(q, emb, k, mask)
+    torch.cuda.synchronize()
+    after = stream_topk.regime_launches
+    assert after["bf16_tc"] == before["bf16_tc"] + 1 and after["float"] == before["float"]
+    assert kv.shape == (q.shape[0], min(k, emb.shape[0])) and ki.dtype == torch.int32
+    _rows_equal_where_untied(kv, ki, lambda kk: stream_topk_plain(q, emb, kk, mask), k)
+    return kv, ki
+
+
+@pytest.mark.parametrize("B", [17, 31, 32, 33, 64, 96, 127, 128])
+@pytest.mark.parametrize("k", [1, 30, 64])
+@pytest.mark.parametrize("N,D", [(3_001, 256), (40_000, 128)])
+def test_k3_bf16_tc_matches_plain(dev, B, k, N, D):
+    """Every query tile (32 / 64 / 96 / 128) either side of its edge, k at
+    1, 30 and 64, a ragged store of fewer tiles than the grid has blocks
+    and one of several tiles a block, with and without a mask."""
+    g = torch.Generator(device="cpu").manual_seed(B * 7 + k + N)
+    q, emb = _float_inputs(B, N, D, torch.bfloat16, g, dev)
+    _bf16_call(q, emb, k)
+    _bf16_call(q, emb, k, (torch.rand(N, generator=g) > 0.3).to(dev))
+
+
+@pytest.mark.parametrize("D", [8, 72, 1000])
+def test_k3_bf16_tc_widths_masks_and_overflow(dev, D):
+    """D below one 64-value chunk and ragged last chunks; a mask that
+    leaves fewer rows than k (the rest row -1 at NEG_INF) and one that
+    leaves none."""
+    g = torch.Generator(device="cpu").manual_seed(D)
+    N = 2_500
+    q, emb = _float_inputs(40, N, D, torch.bfloat16, g, dev)
+    _bf16_call(q, emb, 30, (torch.rand(N, generator=g) > 0.5).to(dev))
+    few = torch.zeros(N, dtype=torch.bool, device=dev)
+    few[torch.tensor([3, 700, 2_499], device=dev)] = True
+    kv, ki = _bf16_call(q, emb, 10, few)
+    assert (ki[:, 3:] == -1).all() and (kv[:, 3:] == -3.0e38).all()
+    assert set(ki[0, :3].tolist()) == {3, 700, 2_499}
+    kv, ki = _bf16_call(q, emb, 10, torch.zeros_like(few))
+    assert (ki == -1).all() and (kv == -3.0e38).all()
+
+
+def test_k3_bf16_tc_takes_only_what_tma_reads(dev):
+    """A view that does not start on 16 bytes, and rows of D % 8 != 0
+    values, stay on scan_float; the same rows aligned run bf16_tc."""
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk, stream_topk_plain
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    N = 3_000
+    for D, view in ((64, True), (60, False)):
+        q, emb = _float_inputs(50, N + 1, D, torch.bfloat16, g, dev)
+        e = emb.reshape(-1)[1:1 + N * D].view(N, D) if view else emb[:N].contiguous()
+        before = dict(stream_topk.regime_launches)
+        kv, ki = stream_topk(q, e, 30)
+        torch.cuda.synchronize()
+        assert stream_topk.regime_launches["float"] == before["float"] + 1
+        assert stream_topk.regime_launches["bf16_tc"] == before["bf16_tc"]
+        _rows_equal_where_untied(kv, ki, lambda kk: stream_topk_plain(q, e, kk), 30)
+    _bf16_call(q[:, :56].contiguous(), emb[:N, :56].contiguous(), 30)
+
+
+def test_k3_bf16_tc_precision_against_f64(dev):
+    """The three-plane split keeps every bit of the f32 query: each value
+    at D = 1024 over unit rows lies within 1e-5 of the f64 score of the
+    bf16 row it names (a tenth of the bf16 cell's value_gap limit).
+    Measured on an H100: 2.19e-7, against 1.85e-6 for scan_float's f32 FMA
+    in the bf16 cell.  A query rounded to bf16 (the hi plane alone) would
+    miss by ~1e-4, one without its lo plane by only ~5e-7: the test below
+    holds each plane bit for bit."""
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    N, D, B = 200_000, 1024, 127
+    emb = torch.nn.functional.normalize(torch.randn(N, D, generator=g, device=dev))
+    emb = emb.to(torch.bfloat16)
+    q = emb[torch.randint(0, N, (B,), generator=g, device=dev)].float() + \
+        0.25 * torch.randn(B, D, generator=g, device=dev) / D ** 0.5
+    q = torch.nn.functional.normalize(q).contiguous()
+    kv, ki = stream_topk(q, emb, 30)
+    exact = (q.double()[:, None, :] * emb[ki.long()].double()).sum(-1)
+    err = (kv.double() - exact).abs().max().item()
+    print(f"bf16_tc max |value - f64| at D = {D}: {err:.3g}")
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("B", [17, 127])
+def test_k3_bf16_tc_keeps_every_plane_of_the_query(dev, B):
+    """Row j holds one power of two, 2^(j // D), at column j % D, so its
+    exact score is q[:, j % D] * 2^(j // D): one product a row, no rounding
+    anywhere.  Every query value has all 24 significant bits set down to
+    the last, so each of its hi, mid and lo planes carries bits, and the
+    returned values equal the exact scores bit for bit only if all three
+    planes reached the tensor cores (without lo a value misses by up to
+    2^7 ulps, without mid by up to 2^15)."""
+    g = torch.Generator(device="cpu").manual_seed(B)
+    D, k = 1024, 64
+    N = 3 * D
+    m = torch.randint(1 << 22, 1 << 23, (B, D), generator=g) * 2 + 1   # 24 bits, odd
+    e = torch.randint(-8, 9, (B, D), generator=g).double()
+    sign = torch.where(torch.rand(B, D, generator=g) < 0.5, -1.0, 1.0).double()
+    q = (sign * m.double() / 2 ** 23 * torch.exp2(e)).float()
+    assert torch.equal(q.double(), sign * m.double() / 2 ** 23 * torch.exp2(e))
+    scale = torch.exp2(torch.arange(N) // D).float()
+    emb = torch.zeros(N, D)
+    emb[torch.arange(N), torch.arange(N) % D] = scale
+    exact = q[:, torch.arange(N) % D] * scale          # f32: exact
+    q, emb = q.to(dev).contiguous(), emb.to(torch.bfloat16).to(dev)
+    kv, ki = _bf16_call(q, emb, k)
+    exact = exact.to(dev)
+    assert torch.equal(kv, torch.topk(exact, k, dim=1).values)
+    assert torch.equal(kv, exact.gather(1, ki.long()))
+
+
+@pytest.mark.parametrize("period", [700, 5_003])
+def test_k3_bf16_tc_copies_of_a_row_score_the_same_bits(dev, period):
+    """Every row three times, ``period`` rows apart: the copies sit at other
+    places of a tile (700) or in other blocks' chunks (5,003 rows: one
+    stage of two tiles a block), and score the same bits, returned in
+    ascending row order."""
+    g = torch.Generator(device="cpu").manual_seed(period)
+    q, emb = _float_inputs(100, period, 256, torch.bfloat16, g, dev)
+    emb3 = emb.repeat(3, 1).contiguous()
+    kv, ki = _bf16_call(q, emb3, 30)
+    v3, i3 = kv.view(-1, 10, 3), ki.view(-1, 10, 3).long()
+    assert torch.equal(v3, v3[:, :, :1].expand_as(v3))
+    assert torch.equal(i3 - i3[:, :, :1], torch.tensor([0, period, 2 * period], device=dev)
+                       .expand_as(i3))
+
+
+@pytest.mark.parametrize("N", [1_700, 250_000])
+@pytest.mark.parametrize("B", [80, 160])
+def test_k3_bf16_tc_at_the_hop_shapes(dev, N, B):
+    """A traversal hop of 80 or 160 walkers (128 + 32: two launches, both
+    bf16_tc) over one document's full-width bf16 rows, k = 31, with and
+    without a row-shared mask, through ops.topk.dense_topk."""
+    from rag_challenge_2_tpu_torch.ops.stream_topk import stream_topk
+    from rag_challenge_2_tpu_torch.ops.topk import dense_topk
+
+    g = torch.Generator(device="cpu").manual_seed(N + B)
+    q, emb = _float_inputs(B, N, 1024, torch.bfloat16, g, dev)
+    for mask in (None, (torch.rand(N, generator=g) > 0.4).to(dev)):
+        before = dict(stream_topk.regime_launches)
+        kv, ki = dense_topk(q, emb, 31, mask=mask)
+        torch.cuda.synchronize()
+        assert stream_topk.regime_launches["bf16_tc"] == before["bf16_tc"] + -(-B // 128)
+        assert stream_topk.regime_launches["float"] == before["float"]
+        _rows_equal_where_untied(kv, ki, lambda kk: dense_topk_plain(q, emb, kk, mask), 31)
+
+
+def test_k3_tc_constants_match_the_library(dev):
+    from rag_challenge_2_tpu_torch.ops import stream_topk as sk
+
+    assert sk.library_tc_constants() == sk.TC_CONSTANTS
+    lib = sk._lib()
+    for qt in sk.TC_QUERY_TILES:
+        for k in (1, 30, 31, 64):
+            for tiles in (1, 2):
+                assert lib.rc2_stream_topk_tc_stages(qt, tiles, k) == sk.tc_stages(qt, tiles, k)
 
 
 # ---- the traversal's hop shapes: K1 / K3 through ops.topk.dense_topk ------

@@ -345,7 +345,9 @@ from tests.test_torch_topk import check_float_plan  # noqa: E402
        k=st.integers(1, 64), elt=st.sampled_from([2, 4]),
        sms=st.sampled_from([108, 114, 132]))
 def test_float_plan_sweep(B, N, k, elt, sms):
-    p = sk.plan(B, False, False, N, sms, k, elt)
+    # bf16 rows of D % 8 != 0 values: a store TMA cannot take, scan_float's
+    # grid at every batch
+    p = sk.plan(B, False, False, N, sms, k, elt, 1001, False)
     assert p.regime == "float"
     assert (p.query_tile, p.tile_rows, p.rows_per_chunk, p.n_chunks) == (
         p.cut.query_tile, p.cut.tile_rows, p.cut.rows_per_chunk, p.cut.n_chunks)
@@ -367,3 +369,124 @@ def test_float_plan_query_tile_at_1m(B, tile, rows):
 def test_scratch_chunks_cover_the_merge_levels():
     for n in (1, 63, 64, 65, 132, 264):
         assert sk.scratch_chunks(n) == n + -(-n // 64)
+
+
+# ---- the bf16_tc regime: where the planner picks it, and the exact split ---
+
+@pytest.mark.parametrize("B,elt,D,aligned,regime", [
+    (17, 2, 1024, True, "bf16_tc"), (127, 2, 1024, True, "bf16_tc"),
+    (128, 2, 1024, True, "bf16_tc"), (64, 2, 1000, True, "bf16_tc"),
+    (33, 2, 8, True, "bf16_tc"),
+    (16, 2, 1024, True, "float"), (1, 2, 1024, True, "float"),      # B <= 16
+    (127, 4, 1024, True, "float"), (17, 4, 1024, True, "float"),    # f32 rows
+    (127, 2, 1001, True, "float"), (127, 2, 100, True, "float"),    # D % 8 != 0
+    (127, 2, 1024, False, "float"),                                 # a misaligned view
+])
+def test_plan_picks_bf16_tc_only_where_tma_and_the_batch_allow(B, elt, D, aligned, regime):
+    """bf16_tc: a bf16 store, more than 16 queries, rows of D % 8 == 0
+    values and a base on 16 bytes; everything else stays on scan_float."""
+    p = sk.plan(B, False, False, 1_500_000, 132, 30, elt, D, aligned)
+    assert p.regime == regime
+    assert (p.cut is None) == (regime == "bf16_tc")
+    assert sk.tc_takes(B, elt, D, aligned) == (regime == "bf16_tc")
+
+
+@pytest.mark.parametrize("B", [8, 127])
+@pytest.mark.parametrize("D,aligned", [(None, True), (1024, None), (None, None)])
+def test_plan_needs_a_bf16_stores_layout(B, D, aligned):
+    """A bf16 plan without the store's width or alignment would describe a
+    regime the wrapper may not run: it is refused.  int8 and f32 plans
+    need neither."""
+    with pytest.raises(ValueError, match="bf16"):
+        sk.plan(B, False, False, 1_500_000, 132, 30, 2, D, aligned)
+    assert sk.plan(B, False, False, 1_500_000, 132, 30, 4).regime == "float"
+    assert sk.plan(B, False, True, 1_500_000, 132).regime.startswith("int8")
+
+
+@pytest.mark.parametrize("B,tile", [(17, 32), (32, 32), (33, 64), (64, 64), (65, 96),
+                                    (96, 96), (97, 128), (127, 128), (128, 128)])
+@pytest.mark.parametrize("N", [1, 1_700, 250_000, 1_500_000])
+def test_bf16_tc_plan_reads_the_store_once(B, tile, N):
+    """The smallest query tile that holds the batch; a persistent grid of
+    one block per SM, each owning whole 128-row tiles for all queries, so
+    the chunks cover every row exactly once."""
+    sms = 132
+    p = sk.plan(B, False, False, N, sms, 30, 2, 1024, True)
+    assert (p.regime, p.query_tile) == ("bf16_tc", tile)
+    assert p.tile_rows == 2 * sk.TC_TILE_ROWS       # two tiles a stage at k = 30
+    assert p.store_passes == 1 and p.rows_per_chunk % p.tile_rows == 0
+    assert (p.n_chunks - 1) * p.rows_per_chunk < N <= p.n_chunks * p.rows_per_chunk
+    assert p.n_chunks <= sms
+
+
+@pytest.mark.parametrize("B", [1, 8, 16, 17, 33, 64])
+@pytest.mark.parametrize("N", [10_240, 250_000, 1_500_000])
+def test_k1_keeps_scan_float_for_bf16(B, N):
+    """K1 (``dense_topk_fused``, up to 64 queries) is not rerouted: its
+    planner still cuts scan_float's grid for a bf16 store."""
+    from rag_challenge_2_tpu_torch.ops.dense_topk import plan as k1_plan
+
+    p = k1_plan(B, N, 30, True, 132)
+    assert isinstance(p, fs.FloatPlan) and p.query_tile == max(8, min(
+        t for t in fs.TILES if t >= B))
+
+
+def test_bf16_tc_constants_and_rings():
+    """The regime's constants in the library's order, and a ring of at
+    least two stages for every query tile at every k."""
+    assert sk.TC_CONSTANTS == (128, 32, 64, 96, 128, 16, 17, 3)
+    assert "bf16_tc" in sk.REGIMES and "bf16_tc" in sk.stream_topk.regime_launches
+    for qt in sk.TC_QUERY_TILES:
+        for k in range(1, sk.MAX_K + 1):
+            for tiles in (1, 2):
+                n = sk.tc_stages(qt, tiles, k)
+                stage, total = sk.tc_smem_bytes(qt, tiles, k, n)
+                assert stage % 1024 == 0 and n <= fs.MAX_STAGES
+                assert n == fs.MAX_STAGES or total + stage > fs.SMEM_BLOCK_MAX
+                assert tiles == 2 or (n >= 2 and total <= fs.SMEM_BLOCK_MAX)
+            # two tiles a stage wherever their ring of two fits
+            p = sk.plan(qt, False, False, 10**6, 132, k, 2, 1024, True)
+            assert p.tile_rows == (2 if sk.tc_stages(qt, 2, k) >= 2 else 1) * sk.TC_TILE_ROWS
+    assert sk.tc_stages(128, 2, 64) < 2 <= sk.tc_stages(128, 2, 30)
+
+
+def _all_bits(rng, n):
+    """f32 values whose 24 significant bits are all set, at exponents
+    across [-100, 100], both signs."""
+    e = rng.integers(-100, 101, n)
+    m = np.float64(2 ** 24 - 1) / 2 ** 23
+    return (np.where(rng.random(n) < 0.5, -1.0, 1.0) * m * np.exp2(e)).astype(np.float32)
+
+
+def test_split_bf16x3_is_exact():
+    """hi + mid + lo == q bitwise, over random f32 of magnitudes 1e-30 to
+    1e30, both signs, and values with all 24 significant bits set; each
+    plane is a bf16 value and the planes fall by at least 2^8 each."""
+    rng = np.random.default_rng(0)
+    mags = np.exp(rng.uniform(np.log(1e-30), np.log(1e30), 200_000))
+    q = (np.where(rng.random(mags.size) < 0.5, -1.0, 1.0) * mags).astype(np.float32)
+    q = np.concatenate([q, _all_bits(rng, 20_000), np.float32([0.0, -0.0, 1.0, -1.0])])
+    qt = torch.from_numpy(q)
+    hi, mid, lo = sk.split_bf16x3(qt)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi.float() + mid.float() + lo.float(), qt)
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), hi.float() + (mid.float() + lo.float()))
+    nz = mid.float() != 0
+    assert bool((mid.float()[nz].abs() <= hi.float()[nz].abs() * 2.0 ** -8).all())
+    # a value already in bf16 has empty lower planes
+    b = qt.to(torch.bfloat16).float()
+    h, m, l = sk.split_bf16x3(b)
+    assert torch.equal(h.float(), b) and not m.float().any() and not l.float().any()
+
+
+def test_split_bf16x3_below_2_to_the_minus_110():
+    """Below 2^-110 (and for f32 subnormals) the split may miss q, by at
+    most 2^-134: lo's last bits fall under bf16's least subnormal."""
+    rng = np.random.default_rng(1)
+    e = rng.uniform(-149, -110, 50_000)
+    q = (np.where(rng.random(e.size) < 0.5, -1.0, 1.0) * np.exp2(e)).astype(np.float32)
+    qt = torch.from_numpy(q)
+    hi, mid, lo = sk.split_bf16x3(qt)
+    miss = (hi.double() + mid.double() + lo.double() - qt.double()).abs()
+    assert float(miss.max()) <= 2.0 ** -134
+    assert bool((qt.abs() < 2.0 ** -126).any())                     # subnormals met

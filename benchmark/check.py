@@ -18,13 +18,23 @@ rows.  Every distinct answer the program gave in the window is compared:
   is the larger of the most by which a returned score lies outside that
   range (a key no arm reaches: its whole score) and the most by which a
   key left out certainly beats the worst key kept; ``wrong`` counts the
-  keys repeated and a list of the wrong length.
+  keys repeated and a list of the wrong length;
+* encode cells, per answer: ``embed_gap``, the largest L2 distance between
+  an embedding the program returned and the reference model's
+  (``reference/models/<model.reference>.py``, f32, the same ids and
+  weights); ``norm_gap``, the most by which an embedding's norm differs
+  from 1 (both are unit vectors); ``wrong``, the rows missing or not
+  finite.  With ``then`` the scan's numbers follow, the program's own
+  embeddings as the queries, and ``recall_at_10`` is measured against the
+  reference pipeline: the reference's embeddings scanned in f32.
 """
 
 from __future__ import annotations
 
+import importlib.util
 from collections import defaultdict
-from typing import Dict, List, Sequence, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +45,7 @@ from .reference.tokenize import term_ids
 from .stores import Store
 from .traffic import Question
 
+HERE = Path(__file__).resolve().parent
 KEEP = 96            # candidates kept a query (above k: rows tied at the cut)
 QUERY_BLOCK = 1024   # queries scored against a chunk at once
 
@@ -48,14 +59,17 @@ def ref_csr(store: Store) -> rbm25.Csr:
 # ---------------------------------------------------------------- scan
 
 def scan_reference(store: Store, q: torch.Tensor, mode: str,
-                   asked: np.ndarray, recall_k: int = 10):
+                   asked: np.ndarray, recall_k: int = 10,
+                   recall_q: Optional[torch.Tensor] = None):
     """For pool queries ``q [P, D]``: each query's ``KEEP`` best rows in
-    ``mode`` (f64 values), its ``recall_k`` best rows in f32, and the
-    reference's score of each row in ``asked [P, A]`` (-1: none)."""
+    ``mode`` (f64 values), the reference's score of each row in ``asked
+    [P, A]`` (-1: none), and the ``recall_k`` best rows in f32 of each of
+    ``recall_q`` (default ``q``)."""
     P = q.shape[0]
     dev = q.device
+    rq = q if recall_q is None else recall_q
     exact = scoring.TopPool(P, KEEP, dev)
-    f32 = scoring.TopPool(P, recall_k, dev)
+    f32 = scoring.TopPool(rq.shape[0], recall_k, dev)
     asked_t = torch.as_tensor(asked, device=dev)
     at = torch.full(asked.shape, float("nan"), dtype=torch.float64, device=dev)
     for s, e, x in store.each_chunk():
@@ -68,7 +82,9 @@ def scan_reference(store: Store, q: torch.Tensor, mode: str,
             got = torch.gather(sc.double(), 1, (ab - s).clamp(0, e - s - 1))
             at[blk] = torch.where(inside, got, at[blk])
             del sc
-            f32.add(scoring.scores(q[blk], x, "f32"), s, blk)
+        for b in range(0, rq.shape[0], QUERY_BLOCK):
+            blk = slice(b, b + QUERY_BLOCK)
+            f32.add(scoring.scores(rq[blk], x, "f32"), s, blk)
     return (exact.vals.cpu().numpy(), exact.rows.cpu().numpy(),
             f32.rows.cpu().numpy(), at.cpu().numpy())
 
@@ -101,6 +117,34 @@ def recall(got: np.ndarray, truth: np.ndarray, k: int = 10) -> float:
     """Mean share of each row of ``truth [B, >=k]``'s first k in ``got``'s first k."""
     hit = [np.isin(truth[b, :k], got[b, :k]).sum() for b in range(truth.shape[0])]
     return float(np.sum(hit)) / (k * truth.shape[0])
+
+
+# -------------------------------------------------------------- encode
+
+def model_reference(model: dict):
+    """The configuration's reference model: ``reference/models/<name>.py``
+    for ``model["reference"]``, with ``init``, ``forward``, ``flops``,
+    ``bytes``, ``token_space`` and ``compute_type``."""
+    name = model["reference"]
+    path = HERE / "reference" / "models" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"benchmark_model_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare_embeddings(got: np.ndarray, ref: np.ndarray) -> Dict[str, float]:
+    """One answer's embeddings ``got [B', D]`` against the reference's
+    ``ref [B, D]``, row by row."""
+    n = min(got.shape[0], ref.shape[0])
+    g, r = got[:n].astype(np.float64), ref[:n].astype(np.float64)
+    ok = np.isfinite(g).all(axis=1) if got.shape[1:] == ref.shape[1:] else np.zeros(n, bool)
+    wrong = abs(got.shape[0] - ref.shape[0]) + int((~ok).sum())
+    if not ok.any():
+        return dict(embed_gap=0.0, norm_gap=0.0, wrong=wrong)
+    gap = np.linalg.norm(g[ok] - r[ok], axis=1)
+    norm = np.abs(np.linalg.norm(g[ok], axis=1) - 1.0)
+    return dict(embed_gap=float(gap.max()), norm_gap=float(norm.max()), wrong=wrong)
 
 
 # -------------------------------------------------------------- served

@@ -23,8 +23,9 @@ class Done:
     item: int              # pool batch (scan) or pool question (served)
     t0: float
     t1: float
-    a: np.ndarray          # rows (scan) or keys (served)
-    b: np.ndarray          # values (scan) or scores (served)
+    a: np.ndarray          # rows (scan, encode) or keys (served)
+    b: np.ndarray          # values (scan, encode) or scores (served)
+    c: Optional[np.ndarray] = None     # embeddings (encode)
 
 
 @dataclass
@@ -42,7 +43,8 @@ class Window:
 def scan(call: Callable, n_batches: int, seconds: float,
          on_tick: Optional[Callable[[float], None]] = None) -> Window:
     """One client: ``call(b)`` for batches 0, 1, .., cycling, until
-    ``seconds`` have passed; ``call`` returns host ``(rows, values)``.
+    ``seconds`` have passed; ``call`` returns host ``(rows, values)``
+    (encode: and the embeddings).
     ``on_tick(elapsed)`` runs between requests (the trace's stop)."""
     w = Window()
     w.start = time.perf_counter()
@@ -53,8 +55,8 @@ def scan(call: Callable, n_batches: int, seconds: float,
             break
         b = i % n_batches
         try:
-            rows, vals = call(b)
-            w.done.append(Done(b, t0, time.perf_counter(), rows, vals))
+            out = call(b)
+            w.done.append(Done(b, t0, time.perf_counter(), *out))
         except Exception as e:      # a failed request is counted, not fatal
             w.failed.append(f"{type(e).__name__}: {e}")
         i += 1

@@ -1,4 +1,5 @@
-"""setup_s: from the start of the process to the first timed request."""
+"""setup_s: from the start of the process to the first timed request, less
+the seconds the reference ran in set-up (a model's planted rows)."""
 
 
 def read(run):

@@ -10,14 +10,16 @@ contiguous row ranges, one a year, of one company; the CSR has ``2**vocab_bits``
 terms of 1 to ``max_postings`` postings each (uniform), postings in
 uniform rows with term frequency 1 to ``tf_max`` and row lengths uniform in
 ``chunk_len``.  These follow ``bench.py`` (``bench_int8_10m``,
-``bench_hybrid_at_scale``), the reference's benchmark.
+``bench_hybrid_at_scale``), the reference's benchmark.  Rows planted by
+set-up (``Store.planted``: sorted row numbers and their f32 rows) replace
+the drawn rows there, in every chunk made, the reference's too.
 """
 
 from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +48,7 @@ class Store:
     cfg: dict
     seed: int
     dev: torch.device
+    planted: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def n_rows(self) -> int:
@@ -89,7 +92,12 @@ class Store:
                 n, D, generator=g, device=self.dev)
         else:
             x = torch.randn(n, D, generator=g, device=self.dev)
-        return x / x.norm(dim=1, keepdim=True)
+        x = x / x.norm(dim=1, keepdim=True)
+        if self.planted is not None:
+            rows, vecs = self.planted
+            lo, hi = torch.searchsorted(rows, torch.tensor([s, e], device=rows.device)).tolist()
+            x[rows[lo:hi] - s] = vecs[lo:hi]
+        return x
 
     def each_chunk(self) -> Iterator[Tuple[int, int, torch.Tensor]]:
         centres = self.centres()

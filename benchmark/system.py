@@ -1,5 +1,5 @@
-"""The system under test: the port's store, engine and batcher, built from
-a cell's inputs with the port's own public calls.
+"""The system under test: the port's store, engine, batcher and embedding
+model, built from a cell's inputs with the port's own public calls.
 
 The rows reach the program as f32 chunks; it keeps them as the
 configuration's ``dtype`` states (bf16 by rounding, int8 through its own
@@ -108,6 +108,30 @@ def int8_store(emb: torch.Tensor):
     for s in range(0, emb.shape[0], step):
         codes[s:s + step], scale[s:s + step] = quantize_rows(emb[s:s + step].float())
     return codes, scale
+
+
+def embedding_model(model: dict, state: Dict[str, torch.Tensor], dev: torch.device):
+    """The port's ``EmbeddingModel`` with every key of the configuration's
+    ``model.encoder`` passed to its ``EncoderConfig`` (a string
+    ``"torch.<name>"`` is that attribute of torch) and the weights
+    ``state`` the benchmark made."""
+    from rag_challenge_2_tpu_torch.models.encoder import EmbeddingModel, EncoderConfig
+
+    def value(v):
+        if isinstance(v, str) and v.startswith("torch."):
+            return getattr(torch, v[len("torch."):])
+        return v
+
+    cfg = EncoderConfig(**{k: value(v) for k, v in model["encoder"].items()})
+    return EmbeddingModel(cfg, params=state, device=dev)
+
+
+def span_collection():
+    """A collection of the port's own spans (``utils/profiling.collect``),
+    not yet started."""
+    from rag_challenge_2_tpu_torch.utils import profiling
+
+    return profiling.collect()
 
 
 def kernel_counters() -> Dict[str, int]:

@@ -1,6 +1,7 @@
 """The harness on the card at a tiny size: the kernels' answers pass the
-check, the trace ties device time to the dense brackets, and the control
-fails.  Run on the card with ``python -m pytest benchmark/tests -m cuda``."""
+check, the trace ties device time to the dense brackets (and counts the
+encoder's operations), and the control fails.  Run on the card with
+``python -m pytest benchmark/tests -m cuda``."""
 
 import time
 
@@ -8,7 +9,7 @@ import pytest
 
 from benchmark import control, harness
 
-from .conftest import CELLS, SEED, SERVED, tiny
+from .conftest import CELLS, PROOF, SEED, SERVED, tiny
 
 
 @pytest.mark.cuda
@@ -25,3 +26,20 @@ def test_cell_on_the_card(cell, card):
     assert 0 < line["metrics"]["dense_roofline"]["value"] <= 105
     got, bad = control.readings(cell, SEED, card, cfg, mix, limits)
     assert any(bad[n] > lim for n, lim in limits["limits"].items()), bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", PROOF)
+def test_proof_cell_on_the_card(cell, card):
+    cfg, mix, limits = tiny(cell)
+    res = harness.run_cell(cell, cfg, mix, limits, SEED, 1.0, True, card,
+                           time.perf_counter(), lambda *a: None)
+    metrics = [dict(m, workloads=[cell]) for m in harness.bench()["per_layer"]]
+    metrics += harness.unlisted_cell(cell)["per_layer"]
+    line = harness.result_line(res, metrics, True, limits, card)
+    assert line["correct"] is True, line["checks"]
+    assert 0 < line["metrics"]["encoder.mfu"]["value"] <= 105
+    if "then" in mix:
+        assert 0 < line["metrics"]["dense_roofline"]["value"] <= 105
+    got, bad = control.readings(cell, SEED, card, cfg, mix, limits)
+    assert bad["embed_gap"] > limits["limits"]["embed_gap"] >= got["embed_gap"], (got, bad)

@@ -7,10 +7,10 @@ import torch
 
 from benchmark import control
 
-from .conftest import CELLS, SEED, SERVED, run_tiny, tiny
+from .conftest import CELLS, PROOF, SEED, SERVED, UNLISTED, run_tiny, tiny
 
 
-@pytest.mark.parametrize("cell", CELLS + SERVED)
+@pytest.mark.parametrize("cell", CELLS + UNLISTED)
 def test_control_fails_and_program_passes(cell):
     cfg, mix, limits = tiny(cell)
     got, bad = control.readings(cell, SEED, torch.device("cpu"), cfg, mix, limits)
@@ -90,5 +90,53 @@ def test_scan_faults_fail(cell, kind, monkeypatch):
 @pytest.mark.parametrize("cell", SERVED)
 def test_served_faults_fail(cell, kind, monkeypatch):
     owner, attr, broken = served_fault(kind)
+    monkeypatch.setattr(owner, attr, broken)
+    assert run_tiny(cell)["correct"] is False
+
+
+def encode_fault(kind):
+    import rag_challenge_2_tpu_torch.models.encoder as encoder
+
+    if kind == "block_skipped":                # the second block returns its input
+        real = encoder.Encoder.__init__
+
+        def broken(self, *a, **kw):
+            real(self, *a, **kw)
+            self.blocks[1].forward = lambda x, mask, plan=None: (x, None)
+        return encoder.Encoder, "__init__", broken
+    if kind == "fp8":                          # the projections' inputs rounded to fp8
+        real = encoder._dense
+
+        def broken(x, lin, dtype):
+            w = torch.nn.Linear(lin.in_features, lin.out_features)
+            with torch.no_grad():
+                w.weight.copy_(control.fp8_e4m3(lin.weight))
+                w.bias.copy_(lin.bias)
+            return real(control.fp8_e4m3(x.float()), w, dtype)
+        return encoder, "_dense", broken
+    real = encoder.EmbeddingModel.embed_tokens
+    last = {}
+
+    def broken(self, ids):
+        e = real(self, ids)
+        if kind == "moved":                    # every value moved by 1e-3 where produced
+            return e + 1e-3
+        if kind == "half":                     # half the batch left out
+            h = e.shape[0] // 2
+            e = e.clone()
+            e[h:2 * h] = e[:h]
+            return e
+        # stale: the previous call's batch (a window of one request, as a
+        # loaded host may run, still gets one: the warm-up's last)
+        out = last.get("out", e)
+        last["out"] = e
+        return out
+    return encoder.EmbeddingModel, "embed_tokens", broken
+
+
+@pytest.mark.parametrize("kind", ["block_skipped", "moved", "fp8", "half", "stale"])
+@pytest.mark.parametrize("cell", PROOF)
+def test_encode_faults_fail(cell, kind, monkeypatch):
+    owner, attr, broken = encode_fault(kind)
     monkeypatch.setattr(owner, attr, broken)
     assert run_tiny(cell)["correct"] is False

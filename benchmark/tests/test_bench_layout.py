@@ -5,7 +5,7 @@ import re
 
 import pytest
 
-from benchmark import harness
+from benchmark import check, harness
 
 SPEC = harness.bench()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -71,5 +71,56 @@ def test_an_unlisted_cell_is_found_by_its_files():
     cell = harness.unlisted_cell("flat10m_int8.hybrid_c1")
     assert cell["config"] == "flat10m_int8" and cell["traffic"] == "hybrid_c1"
     assert {m["name"]: m["unit"] for m in cell["per_layer"]} == {
-        "bm25.stage_ms": "ms", "engine.dispatch_ms": "ms", "fuse.host_ms": "ms"}
+        "bm25.stage_ms": "ms", "engine.dispatch_ms": "ms", "fuse.host_ms": "ms",
+        "encoder.mfu": "%"}
     assert harness.unlisted_cell("flat10m_int8.nothing") is None
+
+
+LIMITS = sorted(p.stem for p in (harness.HERE / "limits").glob("*.json"))
+MODEL_FUNCTIONS = ("init", "forward", "flops", "bytes", "token_space", "compute_type")
+
+
+@pytest.mark.parametrize("name", LIMITS)
+def test_every_measured_cell_has_its_files(name):
+    """Listed or not: a configuration, a mix for one of the three loops, and
+    limits; a mix of the ``encode`` loop runs a configuration with a
+    ``model`` section whose reference file exists, and its check limits
+    ``embed_gap``."""
+    cell = harness.unlisted_cell(name) or {w["name"]: w for w in SPEC["workloads"]}[name]
+    assert NAME.match(name) and cell["chips"] == 1
+    cfg = harness.load("configs", cell["config"])
+    mix = harness.load("traffic", cell["traffic"])
+    limits = harness.load("limits", name)
+    assert mix["loop"] in ("scan", "clients", "encode")
+    assert limits["mode"] in ("int8", "bf16", "f32") and limits["limits"]
+    assert cfg["source"] and isinstance(cfg["reduced"], list)
+    if mix["loop"] != "encode":
+        return
+    assert {"embed_gap", "norm_gap", "wrong"} <= set(limits["limits"])
+    assert 0 < limits["limits"]["embed_gap"] < 1
+    model = cfg["model"]
+    assert set(model) == {"reference", "encoder"} and model["encoder"]
+    ref = check.model_reference(model)
+    assert all(callable(getattr(ref, f)) for f in MODEL_FUNCTIONS)
+    lengths, longest = mix["lengths"], ref.token_space(model)[1]
+    assert lengths["dist"] in ("measured", "uniform", "lognormal")
+    if lengths["dist"] == "measured":
+        assert lengths["values"] and all(1 <= v <= longest for v in lengths["values"])
+    else:
+        assert 1 <= lengths["lo"] <= lengths["hi"] <= longest
+    if "then" in mix:
+        assert mix["then"]["entry"] == "dense_topk" and mix["then"]["k"] >= 10
+        assert {"value_gap", "cut_gap"} <= set(limits["limits"])
+        assert cfg["planted"] >= 10 and cfg["planted_noise"] > 0
+
+
+def test_the_harness_names_no_configuration_mix_or_model():
+    """What a later model or cell brings is found by name: the harness's
+    code names none of them, nor a field of the port's encoder settings
+    (but ``vocab_bits`` and ``dtype``, which are also the store's keys)."""
+    names = {p.stem for d in ("configs", "traffic") for p in (harness.HERE / d).glob("*.json")}
+    names |= {p.stem for p in (harness.HERE / "reference" / "models").glob("*.py")}
+    names |= {"d_model", "n_layers", "n_heads", "d_ff", "max_len", "out_dim", "moe_experts"}
+    for f in ("harness.py", "check.py", "system.py", "control.py"):
+        text = (harness.HERE / f).read_text()
+        assert not [n for n in names if n in text], f

@@ -5,21 +5,25 @@ import pytest
 
 from benchmark import harness
 
-from .conftest import CELLS, SERVED, run_tiny
+from .conftest import CELLS, PROOF, SERVED, UNLISTED, run_tiny
 
 SPEC = harness.bench()
 
 
 def expected(cell, trace):
     ms = SPEC["per_layer"] if trace else SPEC["end_to_end"]
-    got = {m["name"] for m in ms if cell in m.get("workloads", [cell]) or cell in SERVED}
+    got = {m["name"] for m in ms if cell in m.get("workloads", [cell]) or cell in UNLISTED}
     if cell in SERVED and trace:
         got |= {"engine.dispatch_ms", "bm25.stage_ms", "fuse.host_ms"}
+    if cell in PROOF and trace:
+        got |= {"encoder.mfu"}
+    if cell in PROOF and "then" not in harness.load("traffic", cell.split(".")[1]):
+        got -= {"recall_at_10"}             # ingest: no scan, no recall
     return got
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["trace0", "trace1"])
-@pytest.mark.parametrize("cell", CELLS + SERVED)
+@pytest.mark.parametrize("cell", CELLS + UNLISTED)
 def test_result_line(cell, trace):
     line = run_tiny(cell, trace)
     keys = ["correct", "attempted", "failed", "metrics", "device"]
@@ -31,7 +35,7 @@ def test_result_line(cell, trace):
         assert set(c) == {"value", "limit"} and c["value"] <= c["limit"], name
     # the CPU has no device trace: the device metrics are left out, not 0
     got = set(line["metrics"])
-    device_only = {"dense_roofline", "device.idle_share", "bm25.stage_ms"}
+    device_only = {"dense_roofline", "device.idle_share", "bm25.stage_ms", "encoder.mfu"}
     assert got == expected(cell, trace) - device_only
     for m in line["metrics"].values():
         assert m["value"] > 0

@@ -4,7 +4,7 @@ the launching thread was doing, device time of each bracket's kernels."""
 import pytest
 import torch
 
-from benchmark.roofline import DenseWork
+from benchmark.roofline import DenseWork, ModelWork
 from benchmark.trace import Span, Spans, breakdown, reduce
 
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -61,3 +61,19 @@ def test_reduce():
     bd = breakdown(tr)
     assert bd["device_ops"][0] == ["scan", 100e-9]
     assert bd["idle_gaps"][0] == ["fuse", 300e-9]
+
+
+def test_reduce_sums_a_models_operations():
+    """Every bracketed model call wholly inside the window adds its
+    operations, tied to a device operation or not."""
+    sp = Spans()
+    sp.spans += [Span("encoder", (7, 70), 100, 300, 2e-7, ModelWork(5e9, 1e6, "bf16")),
+                 Span("encoder", (7, 70), 400, 600, 2e-7, ModelWork(3e9, 1e6, "bf16")),
+                 Span("encoder", (7, 70), 900, 1100, 2e-7, ModelWork(7e9, 1e6, "bf16")),
+                 Span("dense", (7, 70), 600, 700, 1e-7, DenseWork("bf16", 8, 100, 64, 10))]
+    events = [Ev(CPU, "cudaLaunchKernel", 150, 5, 1, 70), Ev(CUDA, "gemm", 200, 80, 1)]
+    tr = reduce(events, 0, 1000, sp, ("encoder", "dense"))
+    assert tr.bracket_flops == {"encoder": 8e9}
+    assert tr.bracket_peak_s == {"encoder": pytest.approx(8e9 / 989e12, rel=1e-12)}
+    assert tr.bracket_calls == {"encoder": 1}
+    assert tr.bracket_work_s == {"encoder": ModelWork(5e9, 1e6, "bf16").least_s()}

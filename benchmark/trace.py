@@ -5,8 +5,9 @@ the engine calls (``retrieval.engine.dense_hits``, ``bm25_hits``,
 ``fuse_blocks``, ``QueryEngine.search_many``) or around the scan's entry
 call: each records its thread, its start and end on the profiler's clock
 (``time.time_ns``) and its host seconds; a dense bracket also records
-the work of the call (``roofline.DenseWork``) and a BM25 bracket two CUDA
-events on the current stream.  Spans inside the program are not here.
+the work of the call (``roofline.DenseWork``, ``roofline.ModelWork``) and
+a BM25 bracket two CUDA events on the current stream.  Spans inside the
+program are ``program_trace.py``'s.
 
 The profiler (``torch.profiler``) runs over the traced part of the
 window.  Each device operation is tied to the runtime call that launched
@@ -21,11 +22,11 @@ import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from .roofline import DenseWork
+from .roofline import DenseWork, ModelWork
 
 
 def thread_keys() -> Tuple[int, int]:
@@ -43,7 +44,7 @@ class Span:
     t0_ns: int
     t1_ns: int
     host_s: float
-    work: Optional[DenseWork] = None
+    work: Optional[Union[DenseWork, ModelWork]] = None
     events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
 
 
@@ -102,6 +103,8 @@ class Trace:
     bracket_device_s: Dict[str, float] = field(default_factory=dict)
     bracket_work_s: Dict[str, float] = field(default_factory=dict)
     bracket_calls: Dict[str, int] = field(default_factory=dict)   # tied to the trace
+    bracket_flops: Dict[str, float] = field(default_factory=dict)  # every call in the window
+    bracket_peak_s: Dict[str, float] = field(default_factory=dict)  # those at the type's peak
     kernels: int = 0
     unlinked: int = 0          # device operations whose launch the trace lacks
     threads: Tuple[int, int, int] = (0, 0, 0)   # launching, bracketed, both
@@ -188,6 +191,11 @@ def reduce(events, t0_ns: int, t1_ns: int, spans: Spans,
         tr.bracket_device_s[n] = tr.bracket_device_s.get(n, 0.0) + span_s[id(sp)]
         if sp.work is not None:
             tr.bracket_work_s[n] = tr.bracket_work_s.get(n, 0.0) + sp.work.least_s()
+    for sp in inside_window:
+        flops = getattr(sp.work, "flops", None)
+        if flops is not None:
+            tr.bracket_flops[sp.name] = tr.bracket_flops.get(sp.name, 0.0) + flops
+            tr.bracket_peak_s[sp.name] = tr.bracket_peak_s.get(sp.name, 0.0) + sp.work.peak_s()
     tr.brackets_in_window = len(inside_window)
     launching = {tid for tid, t in launches.values() if t0_ns <= t <= t1_ns}
     tids = {sp.tids for sp in inside_window}

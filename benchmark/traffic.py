@@ -18,10 +18,23 @@ Two loops read a mix:
   vectors, each a row of one of its routed documents plus noise, and as
   many texts from ``templates`` with the metric names drawn without
   repeats.
+* ``encode``: one client in a closed loop; each request is one batch of
+  ``batch`` texts as token ids, drawn in turn from ``pool_batches``
+  batches, sent through the encoder's public entry (and, with ``then``,
+  its embeddings on to the dense layer's entry).  A text's length comes
+  from ``lengths``, a distribution or lengths measured on real texts:
+  the pool takes its quantiles at the midpoints of ``batch *
+  pool_batches`` equal steps, so every seed has the same lengths, dealt
+  out in a seeded order; its ids are uniform over the model's
+  vocabulary.  A batch is padded with -1 to the power of two
+  at or above its longest text, at least 32 and at most the model's
+  longest sequence.
 """
 
 from __future__ import annotations
 
+import math
+import statistics
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -94,3 +107,44 @@ def client_orders(mix: dict, n_pool: int, seed: int) -> List[np.ndarray]:
     cycles through its order)."""
     rng = host_rng(seed, "clients")
     return [rng.permutation(n_pool) for _ in range(int(mix["clients"]))]
+
+
+def text_lengths(spec: dict, n: int) -> np.ndarray:
+    """``n`` lengths: the quantiles at ``(j + 0.5) / n`` of ``spec``'s
+    distribution, ascending.  ``measured``: the lengths ``values`` (each
+    an equal share); ``uniform``: whole numbers ``lo`` to ``hi``;
+    ``lognormal``: ``median * exp(sigma * z)`` rounded and clipped to
+    ``[lo, hi]``."""
+    u = (np.arange(n) + 0.5) / n
+    if spec["dist"] == "measured":
+        v = np.sort(np.asarray(spec["values"], np.int64))
+        return v[np.floor(u * v.size).astype(np.int64)]
+    lo, hi = int(spec["lo"]), int(spec["hi"])
+    if spec["dist"] == "uniform":
+        return lo + np.floor(u * (hi - lo + 1)).astype(np.int64)
+    if spec["dist"] == "lognormal":
+        z = np.array([statistics.NormalDist().inv_cdf(x) for x in u])
+        x = np.rint(float(spec["median"]) * np.exp(float(spec["sigma"]) * z))
+        return np.clip(x, lo, hi).astype(np.int64)
+    raise ValueError(f"unknown length distribution {spec['dist']!r}")
+
+
+def bucket(longest: int, max_len: int) -> int:
+    """The padded width of a batch whose longest text is ``longest``."""
+    return min(max(32, 1 << math.ceil(math.log2(max(longest, 1)))), max_len)
+
+
+def token_batches(mix: dict, seed: int, vocab: int, max_len: int) -> List[torch.Tensor]:
+    """The ``encode`` pool: ``pool_batches`` host i32 ``[batch, L]`` id
+    batches padded with -1."""
+    B, n = int(mix["batch"]), int(mix["pool_batches"])
+    lens = np.minimum(text_lengths(mix["lengths"], B * n), max_len)
+    lens = lens[host_rng(seed, "lengths").permutation(lens.size)].reshape(n, B)
+    rng = host_rng(seed, "token_ids")
+    out = []
+    for row_lens in lens:
+        L = bucket(int(row_lens.max()), max_len)
+        ids = rng.integers(0, vocab, (B, L), dtype=np.int32)
+        ids[np.arange(L)[None, :] >= row_lens[:, None]] = -1
+        out.append(torch.from_numpy(ids))
+    return out

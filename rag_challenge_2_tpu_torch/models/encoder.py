@@ -14,6 +14,10 @@ blocks take the top-2 MoE FFN of ``models/moe.py``; on a train mesh
 (``parallel/mesh.shard_params``) a module holds its rank's shard and its
 forward runs the collectives of ``parallel/collectives.py``.
 
+``EncoderConfig(arch="hybrid", ...)`` selects a second backbone, the
+Mamba-2 / attention hybrid of ``models/hybrid.py`` (inference only), with
+its own fields below; :class:`EmbeddingModel` embeds through either.
+
 Attention is written out in plain PyTorch: the reference has no kernel
 here.  Where flax and torch defaults differ, the reference's numerics are
 kept: LayerNorm epsilon 1e-6 with f32 statistics, tanh-approximate GELU,
@@ -27,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +41,7 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..parallel.collectives import ShardPlan, all_sum, gather, sum_scatter
 from ..utils import tokenize as tok
+from .hybrid import HybridEncoder
 from .moe import MoEFFN
 
 # the std of a standard normal truncated at +-2 (flax's lecun_normal
@@ -54,11 +59,35 @@ class EncoderConfig:
     max_len: int = 512
     out_dim: int = 1024
     dtype: torch.dtype = torch.bfloat16
-    moe_experts: int = 0          # >0: odd blocks take a top-2 MoE FFN
+    moe_experts: int = 0          # >0: odd blocks take a top-2 MoE FFN; hybrid: routed experts
+    arch: str = "pre_ln"          # or "hybrid" (models/hybrid.py)
+    vocab_rows: int = 0           # >0: a vocabulary of this many rows (hashed ids folded in)
+    # the hybrid backbone; ``d_ff`` is its routed experts' width
+    layer_types: Tuple[str, ...] = ()   # one period of the layer pattern: "mamba" / "attention"
+    gqa_group: int = 1            # query heads that share one key/value head
+    attention_multiplier: float = 0.0   # the scores' scale; 0: 1/sqrt(head size)
+    mamba_expand: int = 0         # the Mamba-2 inner width over d_model
+    mamba_head_dim: int = 0       # inner width / head_dim heads
+    mamba_state: int = 0
+    mamba_conv: int = 4
+    mamba_chunk: int = 256
+    moe_top_k: int = 0
+    experts_held: Tuple[int, int] = (0, 0)   # the routed experts [first, end) held here
+    shared_ff: int = 0            # the shared expert's width
+    norm_eps: float = 1e-5
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+
+    def __post_init__(self):
+        if self.arch not in ("pre_ln", "hybrid"):
+            raise ValueError(f"unknown encoder arch {self.arch!r}")
+        # a configuration read from JSON gives lists
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        object.__setattr__(self, "experts_held", tuple(self.experts_held))
 
     @property
     def vocab_size(self) -> int:
-        return 1 << self.vocab_bits
+        return self.vocab_rows or 1 << self.vocab_bits
 
 
 def _layer_norm(x, scale, bias, dtype, eps: float = 1e-6):
@@ -175,15 +204,22 @@ class Encoder(nn.Module):
         kernels count the expert axis into the fan-in, as flax's
         ``lecun_normal`` does for ``[E, D, F]``: ``fan_in = D·E``
         (``[E, F, D]``: ``F·E``)."""
+        def drawn(p, fill):
+            # drawn where the generator lives, then copied in: the same
+            # numbers whatever device the module is on
+            t = torch.empty(p.shape, device=generator.device)
+            fill(t)
+            p.copy_(t)
+
         def lecun(w, fan_in):
             std = 1.0 / math.sqrt(fan_in) / TRUNC_NORMAL_STD
-            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
+            drawn(w, lambda t: nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                                     generator=generator))
 
         with torch.no_grad():
             for p in (self.tok_embed, self.pos_embed):
-                p.normal_(0.0, 1.0 / math.sqrt(self.cfg.d_model),
-                          generator=generator)
+                drawn(p, lambda t: t.normal_(0.0, 1.0 / math.sqrt(self.cfg.d_model),
+                                             generator=generator))
             for mod in self.modules():
                 if isinstance(mod, nn.Linear):
                     lecun(mod.weight, mod.in_features)
@@ -231,24 +267,33 @@ class Encoder(nn.Module):
         return (out, aux) if return_aux else out
 
 
+# the hash bits folded into a vocabulary that is not a power of two
+ROWS_HASH_BITS = 31
+
+
 def tokenize_batch(
-    texts, max_len: int, vocab_bits: int, bucket_len: bool = False
+    texts, max_len: int, vocab_bits: int, bucket_len: bool = False, vocab_rows: int = 0
 ) -> np.ndarray:
     """Host-side: texts → padded i32 [B, L] hashed-token batch.
 
     ``bucket_len=True`` pads L to the next power of two ≥ the batch's
     longest text (min 32, cap max_len) instead of always max_len; padding
     is masked, so the embeddings do not change, only the attention width.
+    ``vocab_rows > 0``: ids in ``[0, vocab_rows)``, each token's 31-bit
+    hash taken modulo ``vocab_rows`` (``vocab_bits`` is then not read).
     """
     from ..utils.native import tokenize_queries_native
 
     texts = list(texts)
-    out = tokenize_queries_native(texts, vocab_bits, max_len)
+    bits = ROWS_HASH_BITS if vocab_rows else vocab_bits
+    out = tokenize_queries_native(texts, bits, max_len)
     if out is None:
-        id_lists = [tok.token_ids(t, vocab_bits)[:max_len] for t in texts]
+        id_lists = [tok.token_ids(t, bits)[:max_len] for t in texts]
         out = np.full((len(texts), max_len), -1, np.int32)
         for i, ids in enumerate(id_lists):
             out[i, : len(ids)] = ids
+    if vocab_rows:
+        out = np.where(out >= 0, out % vocab_rows, -1).astype(np.int32)
     if bucket_len:
         lens = (out >= 0).sum(axis=1)
         longest = int(lens.max()) if len(texts) else 1
@@ -378,7 +423,14 @@ class EmbeddingModel:
     :meth:`_bucket` rows, and the padding rows are dropped after: a MoE
     encoder routes every token of the batch, padding included, so its
     embeddings depend on the batch's shape.  A dense encoder's rows are
-    independent, so its batches go unpadded."""
+    independent, so its batches go unpadded, as do the hybrid's (its
+    expert layer drops nothing and routes real tokens only).
+
+    The module is built on its device, its parameters in the types it
+    declares (the hybrid's matrices in ``cfg.dtype``), and ``params`` are
+    copied in once, cast where the types differ; the preset's random
+    weights are drawn where ``generator`` lives and copied in tensor by
+    tensor."""
 
     def __init__(
         self,
@@ -389,14 +441,18 @@ class EmbeddingModel:
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.module = Encoder(cfg)
+        with torch.device("meta"):
+            module = HybridEncoder(cfg) if cfg.arch == "hybrid" else Encoder(cfg)
+        self.module = module.to_empty(device=self.device)
         if params is None:
+            if cfg.arch == "hybrid":
+                raise ValueError("the hybrid backbone draws no weights: pass them as params")
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
             self.module.init_weights(generator)
         else:
             self.module.load_state_dict(params)
-        self.module.to(self.device).eval()
+        self.module.eval()
 
     @torch.inference_mode()
     def embed_tokens(self, token_ids) -> torch.Tensor:
@@ -419,8 +475,8 @@ class EmbeddingModel:
         for s in range(0, len(texts), batch_size):
             chunk = texts[s : s + batch_size]
             ids = tokenize_batch(chunk, self.cfg.max_len, self.cfg.vocab_bits,
-                                 bucket_len=True)
-            if self.cfg.moe_experts > 0:
+                                 bucket_len=True, vocab_rows=self.cfg.vocab_rows)
+            if self.cfg.moe_experts > 0 and self.cfg.arch == "pre_ln":
                 rows = self._bucket(len(chunk), batch_size)
                 ids = np.pad(ids, ((0, rows - len(chunk)), (0, 0)), constant_values=-1)
             outs.append(self.embed_tokens(torch.from_numpy(ids))[: len(chunk)])

@@ -30,6 +30,14 @@ over the global batch.  The experts split over the ``model`` axis (expert
 parallelism): a rank runs its experts on every token routed to them, and
 the outputs of all experts are gathered back over ``model`` for the
 combine.
+
+:class:`DroplessMoE` is the expert layer of the hybrid backbone
+(``models/hybrid.py``): top-k softmax routing over every routed expert,
+no capacity, SiLU-GLU experts and a shared expert.  Under expert
+parallelism a device holds a range of the routed experts; the layer
+routes over all of them and computes the part of the result its own
+experts give (on one device that part goes on, as the deployment's
+exchange would add the rest).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.collectives import ShardPlan, all_sum, gather
+from ..utils.profiling import span
 
 
 def _route(logits: torch.Tensor):
@@ -184,3 +193,67 @@ class MoEFFN(nn.Module):
                + g2.to(dt).float()[:, None] * flat.index_select(0, s2[mine]).float()).to(dt)
         frac = _counts(e1, E).float() / T
         return out.reshape(B, L, D), _aux(frac, prob_sum / T)
+
+
+class DroplessMoE(nn.Module):
+    """Dropless top-k expert layer with a shared expert, for inference:
+    ``forward(h [T, D] f32)`` → f32 ``[T, D]``, the held experts' part plus
+    the shared expert's.
+
+    The router (no bias, f32) gives ``n_experts`` logits a token; the
+    ``top_k`` largest are kept and a softmax over those gives their gates.
+    An expert is ``W_out (SiLU(W_g h) ⊙ W_u h)``; ``w_in [held, D, 2·width]``
+    holds ``W_g`` then ``W_u`` (input-major), ``w_out [held, width, D]``,
+    for the routed experts ``held = (first, end)``; the shared expert's
+    ``shared_in [D, 2·shared_width]`` / ``shared_out [shared_width, D]``
+    are alike.  The (token, expert) pairs of held experts are sorted by
+    expert, their rows gathered and run as one grouped product a matrix
+    (``torch._grouped_mm``) in ``dtype``; each output, scaled by its gate,
+    is added to its token in f32.  Reading the held experts' row counts
+    to the host is this layer's one wait for the device."""
+
+    def __init__(self, d_model: int, width: int, n_experts: int, top_k: int,
+                 held, shared_width: int, dtype: torch.dtype):
+        super().__init__()
+        self.top_k = top_k
+        self.held = (int(held[0]), int(held[1]))
+        E = self.held[1] - self.held[0]
+        if not 0 <= self.held[0] < self.held[1] <= n_experts or not 0 < top_k <= n_experts:
+            raise ValueError(f"experts held {held} / top {top_k} of {n_experts}")
+        self.router = nn.Parameter(torch.zeros(n_experts, d_model))
+        self.w_in = nn.Parameter(torch.zeros(E, d_model, 2 * width, dtype=dtype))
+        self.w_out = nn.Parameter(torch.zeros(E, width, d_model, dtype=dtype))
+        self.shared_in = nn.Parameter(torch.zeros(d_model, 2 * shared_width, dtype=dtype))
+        self.shared_out = nn.Parameter(torch.zeros(shared_width, d_model, dtype=dtype))
+
+    @staticmethod
+    def _glu(a: torch.Tensor) -> torch.Tensor:
+        g, u = a.chunk(2, dim=-1)
+        return F.silu(g) * u
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        lo, hi = self.held
+        E = hi - lo
+        with span("encoder.moe.route"):
+            top, idx = F.linear(h, self.router).topk(self.top_k, dim=-1)
+            gate = torch.softmax(top, dim=-1).reshape(-1)
+            e = idx.reshape(-1)
+            # each pair's held expert, or E (past the last group) for another's
+            key = torch.where((e >= lo) & (e < hi), e - lo, E)
+            order = torch.sort(key, stable=True).indices
+            counts = _counts(key, E + 1)
+            rows = counts[:E].tolist()
+            n = sum(rows)
+            pairs = order[:n]
+            tok = pairs // self.top_k
+            offs = counts[:E].cumsum(0).to(torch.int32)
+        hb = h.to(self.shared_in.dtype)
+        out = torch.zeros_like(h)
+        with span("encoder.moe.experts", rows=rows, routed=n):
+            if n:
+                a = torch._grouped_mm(hb.index_select(0, tok), self.w_in, offs=offs)
+                y = torch._grouped_mm(self._glu(a), self.w_out, offs=offs)
+                out.index_add_(0, tok, y.float() * gate[pairs, None])
+        with span("encoder.moe.shared"):
+            out += (self._glu(hb @ self.shared_in) @ self.shared_out).float()
+        return out

@@ -57,17 +57,35 @@ def test_off_records_nothing_and_returns_the_shared_noop(monkeypatch):
     assert col.spans == [] and not pf._ON
 
 
-def test_off_costs_under_a_microsecond_a_span():
+def test_off_costs_under_a_microsecond_a_span(monkeypatch):
+    """What an off span adds to a loop, against the same loop without it,
+    timed in turns in each round on this thread's own CPU clock, so that
+    the machine's load (other test workers taking the cores) slows
+    neither; and the off path reads no clock and makes no object."""
     n = 20_000
 
-    def loop():
-        t = time.perf_counter_ns()
+    def spans():
+        t = time.thread_time_ns()
         for _ in range(n):
             with pf.span("dense.launch"):
                 pass
-        return (time.perf_counter_ns() - t) / n
+        return time.thread_time_ns() - t
 
-    assert min(loop() for _ in range(5)) < 1000
+    def bare():
+        t = time.thread_time_ns()
+        for _ in range(n):
+            pass
+        return time.thread_time_ns() - t
+
+    assert min((spans() - bare()) / n for _ in range(7)) < 1000
+
+    def boom(*a, **kw):
+        raise AssertionError("read while tracing is off")
+
+    monkeypatch.setattr(pf.time, "time_ns", boom)
+    assert pf.span("dense.launch", rows=3) is pf._NOOP
+    with pf.span("dense.launch"):
+        pass
 
 
 def test_on_records_name_ids_parent_thread_keys_and_times():
